@@ -8,8 +8,9 @@ reader/writer overlap.
 
 Protocol: one warm-up tile absorbs XLA compilation (cached across runs by
 the persistent compile cache), then --runs measured passes over --tiles
-full-size tiles each; the MEDIAN pass is reported (this host's CPU speed
-varies by >2x run to run). One JSON line, same shape as bench.py.
+full-size tiles each; the MEDIAN pass is reported. One JSON line, same
+shape as bench.py. Exits non-zero, printing no result, when JAX finds no
+GPU.
 
 Usage: python bench_e2e.py [--tiles 8] [--runs 3] [--size 3660]
        [--no-ancillaries]
@@ -24,11 +25,6 @@ import time
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, os.path.join(HERE, 'tests'))
-
-# Round-1 measured E2E on this environment class: 8 full tiles (7 core
-# layers) in 287 s with the same campaign runner = 1.67 tiles/min
-# (BENCH_NOTES.md). That is the improvement anchor for vs_baseline.
-ROUND1_TILES_PER_MIN = 1.67
 
 
 def build_dataset(root, size, ancillaries):
@@ -63,8 +59,8 @@ def build_dataset(root, size, ancillaries):
 
 
 def run_pass(files, extra, out_root, n_tiles, tag):
-    from proteus_tpu.models.dswx.chain import DswxChainConfig
-    from proteus_tpu.parallel.campaign import CampaignRunner, TileJob
+    from proteus_jax.models.dswx.chain import DswxChainConfig
+    from proteus_jax.parallel.campaign import CampaignRunner, TileJob
     out_dir = os.path.join(out_root, tag)
     shutil.rmtree(out_dir, ignore_errors=True)
     os.makedirs(out_dir, exist_ok=True)
@@ -75,10 +71,10 @@ def run_pass(files, extra, out_root, n_tiles, tag):
         os.makedirs(j.output_dir, exist_ok=True)
     runner = CampaignRunner(
         config=DswxChainConfig(), save_browse=True,
-        scaled_inputs=os.environ.get('PROTEUS_TPU_BENCH_SCALED') == '1',
+        scaled_inputs=os.environ.get('PROTEUS_BENCH_SCALED') == '1',
         tiles_per_device=int(os.environ.get(
-            'PROTEUS_TPU_TILES_PER_DEVICE', '1')))
-    from proteus_tpu.parallel.campaign import STAGE_TIMES
+            'PROTEUS_TILES_PER_DEVICE', '1')))
+    from proteus_jax.parallel.campaign import STAGE_TIMES
     STAGE_TIMES.reset()  # per-pass stage tables
     t0 = time.time()
     stats = runner.run(jobs)
@@ -101,8 +97,19 @@ def main():
     ap.add_argument('--runs', type=int, default=3)
     ap.add_argument('--size', type=int, default=3660)
     ap.add_argument('--no-ancillaries', action='store_true')
-    ap.add_argument('--root', default='/tmp/proteus_e2e_bench')
+    ap.add_argument('--root', default=os.path.join(HERE, 'profiles',
+                                                   'e2e_bench'))
     args = ap.parse_args()
+
+    from proteus_jax.utils import compile_cache
+    from proteus_jax.utils.gpu import (NoGpuError, card_identity,
+                                       device_record, require_gpu)
+    try:
+        devices = require_gpu()
+    except NoGpuError as exc:
+        print(f'bench_e2e.py: {exc}', file=sys.stderr)
+        return 2
+    compile_cache.enable()
 
     files, extra = build_dataset(args.root, args.size,
                                  not args.no_ancillaries)
@@ -121,18 +128,20 @@ def main():
     med = times[len(times) // 2]
     tpm = args.tiles / med * 60.0
     scaled_tag = '_scaled' \
-        if os.environ.get('PROTEUS_TPU_BENCH_SCALED') == '1' else ''
+        if os.environ.get('PROTEUS_BENCH_SCALED') == '1' else ''
     print(json.dumps({
         'metric': f'e2e_campaign_tiles_per_min_{args.size}x{args.size}'
                   + ('' if args.no_ancillaries else '_all_ancillaries')
                   + scaled_tag,
-        'value': round(tpm, 2),
+        'value': tpm,
         'unit': 'tiles/min',
-        'vs_baseline': round(tpm / ROUND1_TILES_PER_MIN, 2),
         'n_passes': args.runs,
-        'pass_seconds': [round(t, 1) for t in times],
+        'pass_seconds': times,
+        'device': device_record(devices),
+        'card': card_identity(),
     }))
+    return 0
 
 
 if __name__ == '__main__':
-    main()
+    sys.exit(main())

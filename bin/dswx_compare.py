@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
-"""Compare two DSWx-HLS products. See proteus_tpu.cli.dswx_compare."""
+"""Compare two DSWx-HLS products. See proteus_jax.cli.dswx_compare."""
 
-from proteus_tpu.cli.dswx_compare import main
+from proteus_jax.cli.dswx_compare import main
 
 if __name__ == '__main__':
     main()

@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""DSWx-HLS product generation (TPU-native). See proteus_tpu.cli.dswx_hls.
+"""DSWx-HLS product generation on JAX. See proteus_jax.cli.dswx_hls.
 
 References:
 [1] J. W. Jones, "Efficient wetland surface water detection and monitoring
@@ -8,7 +8,7 @@ References:
     DESCRIPTION DOCUMENT (ADD)", USGS, March 2018.
 """
 
-from proteus_tpu.cli.dswx_hls import main
+from proteus_jax.cli.dswx_hls import main
 
 if __name__ == '__main__':
     main()

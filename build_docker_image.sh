@@ -1,6 +1,6 @@
 #!/bin/sh
-# Build the proteus_tpu container image and run the test suite inside it.
+# Build the proteus_jax container image and run the test suite inside it.
 set -e
-IMAGE=${1:-proteus_tpu}
+IMAGE=${1:-proteus_jax}
 docker build -t "$IMAGE" .
-docker run --rm --entrypoint python "$IMAGE" -m pytest /opt/proteus_tpu/tests -q
+docker run --rm --entrypoint python "$IMAGE" -m pytest /opt/proteus_jax/tests -q

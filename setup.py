@@ -6,30 +6,30 @@ from setuptools import setup, find_packages
 
 def get_version():
     here = os.path.dirname(__file__)
-    with open(os.path.join(here, 'proteus_tpu', 'version.py')) as fh:
+    with open(os.path.join(here, 'proteus_jax', 'version.py')) as fh:
         text = fh.read()
     m = re.search(r"VERSION\s*=\s*['\"]([\d.]+)['\"]", text)
     if m is None:
-        raise ValueError('malformed proteus_tpu/version.py')
+        raise ValueError('malformed proteus_jax/version.py')
     return m.group(1)
 
 
 setup(
-    name='proteus_tpu',
+    name='proteus_jax',
     version=get_version(),
-    description='TPU-native Dynamic Surface Water Extent (DSWx-HLS) '
-                'framework: JAX/XLA/Pallas science core with a '
-                'self-contained GeoTIFF/COG + geodesy runtime',
-    packages=find_packages(include=['proteus_tpu', 'proteus_tpu.*']),
-    package_data={'proteus_tpu.config': ['defaults/*.yaml',
+    description='Dynamic Surface Water Extent (DSWx-HLS) framework: '
+                'JAX/XLA science core with a self-contained GeoTIFF/COG '
+                '+ geodesy runtime',
+    packages=find_packages(include=['proteus_jax', 'proteus_jax.*']),
+    package_data={'proteus_jax.config': ['defaults/*.yaml',
                                          'schemas/*.yaml']},
     python_requires='>=3.9',
-    install_requires=['numpy', 'scipy', 'jax', 'pyyaml', 'pillow'],
+    install_requires=['numpy', 'scipy', 'jax'],
     entry_points={
         'console_scripts': [
-            'dswx_hls=proteus_tpu.cli.dswx_hls:main',
-            'dswx_compare=proteus_tpu.cli.dswx_compare:main',
-            'dswx_campaign=proteus_tpu.cli.dswx_campaign:main',
+            'dswx_hls=proteus_jax.cli.dswx_hls:main',
+            'dswx_compare=proteus_jax.cli.dswx_compare:main',
+            'dswx_campaign=proteus_jax.cli.dswx_campaign:main',
         ],
     },
     scripts=['bin/dswx_hls.py', 'bin/dswx_compare.py'],

@@ -14,7 +14,7 @@ import os
 
 _here = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, _here)
-sys.path.insert(0, os.path.dirname(_here))  # repo root for proteus_tpu
+sys.path.insert(0, os.path.dirname(_here))  # repo root for proteus_jax
 
 import numpy as np
 
@@ -23,8 +23,8 @@ import jax
 jax.config.update('jax_platforms', 'cpu')
 
 import oracle  # noqa: E402
-from proteus_tpu.core.thresholds import HlsThresholds  # noqa: E402
-from proteus_tpu.models.dswx.chain import (DswxChainConfig,  # noqa: E402
+from proteus_jax.core.thresholds import HlsThresholds  # noqa: E402
+from proteus_jax.models.dswx.chain import (DswxChainConfig,  # noqa: E402
                                            dswx_chain)
 
 
@@ -126,8 +126,8 @@ def one_scaled_iteration(seed, ref):
     """Scaled-input (float32) diag + masking parity vs the reference's
     executing code, with boundary-adversarial pixels and non-decimal
     thresholds."""
-    from proteus_tpu.models.dswx.diagnostics import compute_diagnostic_tests
-    from proteus_tpu.models.dswx import masking
+    from proteus_jax.models.dswx.diagnostics import compute_diagnostic_tests
+    from proteus_jax.models.dswx import masking
     rng = np.random.default_rng(seed)
     shape = (int(rng.integers(16, 128)), int(rng.integers(16, 128)))
     scale = 0.0001 if rng.random() < 0.7 else float(rng.uniform(1e-5, 1e-3))
@@ -183,8 +183,8 @@ _DEVICE_SCALE_SHAPE = (2, 48, 64)
 def make_device_scale_steps():
     """One (device-scale step, host-cast step) pair, compiled once —
     scales/offsets are traced inputs, so all fuzz iterations share it."""
-    from proteus_tpu.parallel.campaign import make_campaign_step
-    from proteus_tpu.parallel.mesh import make_tile_mesh
+    from proteus_jax.parallel.campaign import make_campaign_step
+    from proteus_jax.parallel.mesh import make_tile_mesh
     mesh = make_tile_mesh()
     cfg = DswxChainConfig()
     return (make_campaign_step(cfg, mesh, float_inputs=True,
@@ -236,7 +236,7 @@ def one_device_scale_iteration(seed, steps):
 def one_nondecimal_iteration(seed, ref):
     """Integer-path diag parity with raw (non-decimal) float64 thresholds
     — exercises the boundary-exact float64 comparisons."""
-    from proteus_tpu.models.dswx.diagnostics import compute_diagnostic_tests
+    from proteus_jax.models.dswx.diagnostics import compute_diagnostic_tests
     rng = np.random.default_rng(seed)
     shape = (int(rng.integers(16, 128)), int(rng.integers(16, 128)))
     bands = [rng.integers(-32768, 32767, shape).astype(np.int16)
@@ -264,8 +264,8 @@ def one_warp_iteration(seed, tmpdir):
     sources (dtype, nodata, resolution) and tile grids, all three
     resampling kernels."""
     import tempfile
-    from proteus_tpu.io.cog import write_cog
-    from proteus_tpu.geo.warp import warp_to_grid, warp_to_grid_device
+    from proteus_jax.io.cog import write_cog
+    from proteus_jax.geo.warp import warp_to_grid, warp_to_grid_device
     rng = np.random.default_rng(seed)
     wrap_source = rng.random() < 0.25
     # projected (non-geographic) source CRS in ~30% of non-wrap
@@ -292,7 +292,7 @@ def one_warp_iteration(seed, tmpdir):
         # genuinely overlap
         tile_x0 = 7.0e5 + float(rng.uniform(-5e4, 5e4))
         tile_y0 = 3.48e6 + float(rng.uniform(-5e4, 5e4))
-        from proteus_tpu.geo.crs import transform_points
+        from proteus_jax.geo.crs import transform_points
         cx, cy = transform_points(
             'EPSG:32615', f'EPSG:{src_epsg}',
             np.array([tile_x0 + 2000.0]), np.array([tile_y0 - 2000.0]))
@@ -378,7 +378,7 @@ def one_shadow_iteration(seed, ref):
     """Fuzz compute_opera_shadow_layer_exact against the reference's
     executing float64 chain over synthetic DEMs (smooth, rough, quantized,
     NaN-holed) and sun geometries, including near-tie thresholds."""
-    from proteus_tpu.models.dswx.shadow import compute_opera_shadow_layer_exact
+    from proteus_jax.models.dswx.shadow import compute_opera_shadow_layer_exact
     rng = np.random.default_rng(seed)
     shape = (int(rng.integers(16, 200)), int(rng.integers(16, 200)))
     kind = rng.integers(0, 5)
@@ -418,7 +418,7 @@ def one_hillshade_iteration(seed, ref):
     mask vs the reference's executing _compute_otsu_threshold over
     those bytes."""
     import jax.numpy as jnp
-    from proteus_tpu.models.dswx.shadow import (
+    from proteus_jax.models.dswx.shadow import (
         compute_hillshade_exact, compute_otsu_shadow_layer_exact,
         _host_hillshade_gdal)
     rng = np.random.default_rng(seed)

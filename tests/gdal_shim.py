@@ -1,4 +1,4 @@
-"""Functional GDAL/OSR/OGR shim backed by proteus_tpu's own engines.
+"""Functional GDAL/OSR/OGR shim backed by proteus_jax's own engines.
 
 refbridge loads the reference's dswx_hls module with *inert* GDAL stubs —
 enough to call its pure-NumPy science functions. This module goes
@@ -7,11 +7,11 @@ further: it provides a *working* subset of the ``osgeo.gdal`` /
 (``generate_dswx_layers``) actually touches, implemented on top of this
 repo's own I/O and geo engines:
 
-    gdal.Open / ReadAsArray / metadata      -> proteus_tpu.io.tiff
-    driver('GTiff').Create + WriteArray     -> proteus_tpu.io.cog.write_cog
-    gdal.Warp (bounds/res/SRS/resampleAlg)  -> proteus_tpu.geo.warp
-    gdal.Translate(format='PNG')            -> proteus_tpu.io.png
-    osr.SpatialReference / Transformation   -> proteus_tpu.geo.crs
+    gdal.Open / ReadAsArray / metadata      -> proteus_jax.io.tiff
+    driver('GTiff').Create + WriteArray     -> proteus_jax.io.cog.write_cog
+    gdal.Warp (bounds/res/SRS/resampleAlg)  -> proteus_jax.geo.warp
+    gdal.Translate(format='PNG')            -> proteus_jax.io.png
+    osr.SpatialReference / Transformation   -> proteus_jax.geo.crs
     ogr.Geometry (ring/polygon containers)  -> lightweight shim
 
 With these injected (see tests/test_reference_e2e.py), the REFERENCE'S
@@ -31,11 +31,11 @@ import re
 
 import numpy as np
 
-from proteus_tpu.geo.crs import CRS, transform_points
-from proteus_tpu.geo import warp as _warp_engine
-from proteus_tpu.io import png as _png
-from proteus_tpu.io.cog import write_cog
-from proteus_tpu.io.tiff import TiffReader
+from proteus_jax.geo.crs import CRS, transform_points
+from proteus_jax.geo import warp as _warp_engine
+from proteus_jax.io import png as _png
+from proteus_jax.io.cog import write_cog
+from proteus_jax.io.tiff import TiffReader
 
 # ---------------------------------------------------------------------------
 # gdal constants
@@ -312,7 +312,7 @@ class _ReadDataset:
 
 
 # ---------------------------------------------------------------------------
-# Write-side dataset (persists through proteus_tpu's COG writer)
+# Write-side dataset (persists through proteus_jax's COG writer)
 # ---------------------------------------------------------------------------
 
 class _WriteBand:
@@ -498,7 +498,7 @@ class _Hdf4ReadDataset:
     'HDF4_EOS:EOS_GRID:"file":Grid:band' refs, dswx_hls.py:2358)."""
 
     def __init__(self, path, band_name):
-        from proteus_tpu.io.hdf4 import Hdf4Raster
+        from proteus_jax.io.hdf4 import Hdf4Raster
         self._raster = Hdf4Raster(path, band_name)
         self.RasterYSize, self.RasterXSize = self._raster.shape
         self.RasterCount = 1
@@ -599,7 +599,7 @@ def DEMProcessing(destination, source, processing, azimuth=None,
         raise NotImplementedError(
             f'gdal_shim DEMProcessing supports only hillshade '
             f'(got {processing!r})')
-    from proteus_tpu.models.dswx.shadow import compute_hillshade_exact
+    from proteus_jax.models.dswx.shadow import compute_hillshade_exact
     with TiffReader(source) as r:
         dem = r.read()
         gt = r.geotransform()
@@ -630,7 +630,7 @@ def RasterizeLayer(dataset, bands, layer, burn_values=(1,)):
     Buffer margin is applied as the exact Euclidean distance-transform
     threshold (the production ocean-mask semantics, geo/polygon.py)."""
     from scipy.ndimage import distance_transform_edt
-    from proteus_tpu.geo.polygon import rasterize_rings
+    from proteus_jax.geo.polygon import rasterize_rings
     gt = dataset.GetGeoTransform()
     h, w = dataset.RasterYSize, dataset.RasterXSize
     band = dataset.GetRasterBand(bands[0])
@@ -816,7 +816,7 @@ class Geometry:
         return poly
 
     def Intersection(self, other):
-        from proteus_tpu.geo.polygon import clip_ring_to_rect
+        from proteus_jax.geo.polygon import clip_ring_to_rect
         bx0, bx1, by0, by1 = other.GetEnvelope()
         clipped = []
         for arr in self.ring_arrays():
@@ -868,7 +868,7 @@ class _Layer:
 
 class _ShapefileDataSource:
     def __init__(self, path):
-        from proteus_tpu.io.shapefile import read_shapefile
+        from proteus_jax.io.shapefile import read_shapefile
         polygons, crs_wkt = read_shapefile(path)
         srs = SpatialReference()
         srs.ImportFromWkt(crs_wkt if crs_wkt

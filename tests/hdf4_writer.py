@@ -11,7 +11,7 @@ import struct
 import numpy as np
 import zlib
 
-from proteus_tpu.io import hdf4 as H
+from proteus_jax.io import hdf4 as H
 
 DFNT_CHAR8 = 4
 

@@ -1,7 +1,7 @@
 """NumPy float64 oracle for the DSWx-HLS science chain.
 
 An independent re-implementation of the reference SAS semantics
-(nasa/PROTEUS dswx_hls.py) used to validate that the TPU chain is
+(nasa/PROTEUS dswx_hls.py) used to validate that the device chain is
 bit-exact. Everything here follows NumPy's default promotion rules on int16
 inputs — including int16 overflow wrap in band sums and float64 division
 with inf/NaN for zero denominators — because that is what the reference

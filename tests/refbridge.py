@@ -3,7 +3,7 @@
 The reference (read-only at /root/reference) imports GDAL/yamale/ruamel at
 module scope, none of which exist in this environment. Its *science core*
 (diagnostic tests, interpretation, masking, cloud, shadow — everything our
-TPU chain re-implements) is pure NumPy/SciPy, so we stub the unavailable
+device chain re-implements) is pure NumPy/SciPy, so we stub the unavailable
 modules with inert placeholders and import the real module. Tests built on
 this bridge compare our chain against the reference's actual executing
 code, not against this repo's own re-implementation (tests/oracle.py),

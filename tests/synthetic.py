@@ -11,9 +11,9 @@ import os
 
 import numpy as np
 
-from proteus_tpu.geo.crs import CRS, utm_inverse
-from proteus_tpu.io.cog import write_cog
-from proteus_tpu.io.shapefile import write_shapefile
+from proteus_jax.geo.crs import CRS, utm_inverse
+from proteus_jax.io.cog import write_cog
+from proteus_jax.io.shapefile import write_shapefile
 
 EPSG = 32615           # UTM zone 15N
 ZONE, NORTH = 15, True
@@ -159,7 +159,7 @@ def make_dem_in_crs(out_dir, epsg, size=360, seed=5, resolution_m=60.0,
                     margin_m=3200.0):
     """DEM delivered natively in a projected CRS (e.g. Conus Albers
     5070, Canada Atlas Lambert 3978) covering the UTM tile + margin."""
-    from proteus_tpu.geo.crs import transform_points
+    from proteus_jax.geo.crs import transform_points
     xs = np.array([X0 - margin_m, X0 + size * 30 + margin_m,
                    X0 - margin_m, X0 + size * 30 + margin_m])
     ys = np.array([Y0 + margin_m, Y0 + margin_m,

@@ -11,12 +11,12 @@ import jax
 import oracle
 import synthetic
 
-from proteus_tpu.core.thresholds import HlsThresholds
-from proteus_tpu.models.dswx.chain import DswxChainConfig
-from proteus_tpu.parallel.campaign import (CampaignRunner, TileJob,
+from proteus_jax.core.thresholds import HlsThresholds
+from proteus_jax.models.dswx.chain import DswxChainConfig
+from proteus_jax.parallel.campaign import (CampaignRunner, TileJob,
                                            make_campaign_step)
-from proteus_tpu.parallel.mesh import make_tile_mesh
-from proteus_tpu.io.tiff import TiffReader
+from proteus_jax.parallel.mesh import make_tile_mesh
+from proteus_jax.io.tiff import TiffReader
 
 T = HlsThresholds()
 TDICT = {k: getattr(T, k) for k in T.__dataclass_fields__}
@@ -54,38 +54,55 @@ def test_campaign_step_matches_oracle(mode):
     assert int(totals['n_tiles_total']) == B
 
 
-@pytest.mark.parametrize('mode', ['mask', 'cover'])
-def test_campaign_step_pallas_minimal_matches_chain(mode):
-    """The production TPU default: dp sharding + fused Pallas kernel in
-    minimal-transfer mode (2-byte/px packed layers on device, unpacked +
-    dependent layers derived on host) — exercised on the virtual mesh in
-    interpret mode, bit-identical to the jnp chain."""
-    from proteus_tpu.models.dswx import host_derive
-    from proteus_tpu.models.dswx.chain import dswx_chain
-    mesh = make_tile_mesh()
-    cfg = DswxChainConfig(mask_adjacent_to_cloud_mode=mode)
-    step = make_campaign_step(cfg, mesh, use_pallas=True,
-                              pallas_interpret=True, pallas_block_rows=8)
-    rng = np.random.default_rng(5)
-    B, H, W = 8, 64, 64
+def _random_batch(rng, B, H, W, ancillaries=False):
     bands = [np.clip(rng.integers(-2000, 15000, (B, H, W)), 1,
                      None).astype(np.int16) for _ in range(6)]
     fmask = rng.integers(0, 256, (B, H, W)).astype(np.uint8)
     invalid = rng.random((B, H, W)) < 0.05
-    out, totals = step(*bands, fmask, invalid)
+    extras = []
+    if ancillaries:
+        extras = [(rng.random((B, H, W)) < 0.9).astype(np.uint8),
+                  (rng.random((B, H, W)) < 0.8).astype(np.uint8),
+                  rng.choice(np.array([0, 100, 200, 201, 255], np.uint8),
+                             (B, H, W))]
+    return bands, fmask, invalid, extras
 
-    for k in range(B):
-        minimal = {key: np.asarray(out[key][k])
-                   for key in ('PACKED_A', 'PACKED_B')}
-        derived = host_derive.derive_dependent_layers(dict(minimal))
+
+def _assert_tiles_match_chain(out, bands, fmask, invalid, extras, cfg,
+                              layers, **chain_kw):
+    from proteus_jax.models.dswx.chain import dswx_chain
+    names = ('ocean_mask', 'shadow_layer', 'landcover_mask')
+    for k in range(fmask.shape[0]):
+        anc = {n: e[k] for n, e in zip(names, extras)}
         want = dswx_chain(*[b[k] for b in bands], fmask[k], invalid[k],
-                          cfg)
-        for layer in ('DIAG', 'WTR-1', 'WTR-2', 'WTR', 'BWTR', 'CONF',
-                      'CLOUD'):
+                          cfg, **anc, **chain_kw)
+        for layer in layers:
             np.testing.assert_array_equal(
-                derived[layer], np.asarray(want[layer]),
-                err_msg=f'tile {k} {layer} mode {mode}')
-    assert int(totals['n_valid_total']) == int((~invalid).sum())
+                np.asarray(out[layer][k]), np.asarray(want[layer]),
+                err_msg=f'tile {k} {layer}')
+
+
+ALL_LAYERS = ('DIAG', 'WTR-1', 'WTR-2', 'WTR', 'BWTR', 'CONF', 'CLOUD')
+
+
+@pytest.mark.parametrize('mode', ['mask', 'cover'])
+def test_campaign_step_all_ancillaries_matches_chain(mode):
+    """The production dp step with every ancillary mask and two tiles
+    per device (a real per-device batch): every layer bit-identical to
+    the single-tile chain."""
+    mesh = make_tile_mesh()
+    cfg = DswxChainConfig(mask_adjacent_to_cloud_mode=mode)
+    step = make_campaign_step(cfg, mesh, with_ocean=True, with_shadow=True,
+                              with_landcover=True)
+    bands, fmask, invalid, extras = _random_batch(
+        np.random.default_rng(5), 16, 64, 64, ancillaries=True)
+    out, totals = step(*bands, fmask, invalid, *extras)
+    _assert_tiles_match_chain(out, bands, fmask, invalid, extras, cfg,
+                              ALL_LAYERS)
+    # valid pixels exclude the ocean-masked ones
+    assert int(totals['n_valid_total']) == int(
+        (~invalid & (extras[0] != 0)).sum())
+    assert int(totals['n_tiles_total']) == 16
 
 
 class TestCampaignRunner:
@@ -164,9 +181,9 @@ class TestSpatialSharding:
 
     @pytest.mark.parametrize('mode', ['mask', 'cover'])
     def test_spatial_matches_single_device(self, mode):
-        from proteus_tpu.parallel.campaign import make_spatial_campaign_step
-        from proteus_tpu.parallel.mesh import make_tile_space_mesh
-        from proteus_tpu.models.dswx.chain import dswx_chain
+        from proteus_jax.parallel.campaign import make_spatial_campaign_step
+        from proteus_jax.parallel.mesh import make_tile_space_mesh
+        from proteus_jax.models.dswx.chain import dswx_chain
 
         mesh = make_tile_space_mesh(2, 4)
         cfg = DswxChainConfig(mask_adjacent_to_cloud_mode=mode)
@@ -191,37 +208,23 @@ class TestSpatialSharding:
         assert int(totals['n_valid_total']) == int((~invalid).sum())
 
     @pytest.mark.parametrize('mode', ['mask', 'cover'])
-    def test_spatial_pallas_matches_single_device(self, mode):
-        """dp x sp sharding WITH the fused Pallas kernel inside each
-        shard (interpret mode on the virtual mesh; the TPU compiles the
-        same program). Validates the halo-exchange + kernel combination
-        that production uses on multi-chip slices."""
-        from proteus_tpu.parallel.campaign import make_spatial_campaign_step
-        from proteus_tpu.parallel.mesh import make_tile_space_mesh
-        from proteus_tpu.models.dswx.chain import dswx_chain
+    def test_spatial_ancillaries_matches_single_device(self, mode):
+        """dp x sp sharding with every ancillary mask: the masks are
+        halo-exchanged with their nodata-neutral edge fills and the
+        result is bit-identical to the single-device chain."""
+        from proteus_jax.parallel.campaign import make_spatial_campaign_step
+        from proteus_jax.parallel.mesh import make_tile_space_mesh
 
         mesh = make_tile_space_mesh(2, 4)
         cfg = DswxChainConfig(mask_adjacent_to_cloud_mode=mode)
-        step = make_spatial_campaign_step(
-            cfg, mesh, use_pallas=True, pallas_interpret=True,
-            pallas_block_rows=8)
-
-        rng = np.random.default_rng(3)
-        B, H, W = 2, 128, 64
-        bands = [np.clip(rng.integers(-2000, 15000, (B, H, W)), 1,
-                         None).astype(np.int16) for _ in range(6)]
-        fmask = rng.integers(0, 256, (B, H, W)).astype(np.uint8)
-        invalid = rng.random((B, H, W)) < 0.05
-        out, totals = step(*bands, fmask, invalid)
-
-        for k in range(B):
-            want = dswx_chain(*[b[k] for b in bands], fmask[k],
-                              invalid[k], cfg)
-            for layer in ('DIAG', 'WTR-1', 'WTR-2', 'WTR', 'BWTR',
-                          'CONF', 'CLOUD'):
-                np.testing.assert_array_equal(
-                    np.asarray(out[layer][k]), np.asarray(want[layer]),
-                    err_msg=f'tile {k} {layer} mode {mode}')
+        step = make_spatial_campaign_step(cfg, mesh, with_ocean=True,
+                                          with_shadow=True,
+                                          with_landcover=True)
+        bands, fmask, invalid, extras = _random_batch(
+            np.random.default_rng(3), 2, 128, 64, ancillaries=True)
+        out, totals = step(*bands, fmask, invalid, *extras)
+        _assert_tiles_match_chain(out, bands, fmask, invalid, extras, cfg,
+                                  ALL_LAYERS)
         assert int(totals['n_valid_total']) == int((~invalid).sum())
 
 
@@ -230,9 +233,9 @@ def test_spatial_step_scaled_device_scale_matches_chain():
     match the single-device float chain on the host-cast bands
     bit-for-bit (per-tile scale/offset vectors replicated across the
     space shards; cast runs before the halo exchange)."""
-    from proteus_tpu.models.dswx.chain import dswx_chain
-    from proteus_tpu.parallel.campaign import make_spatial_campaign_step
-    from proteus_tpu.parallel.mesh import make_tile_space_mesh
+    from proteus_jax.models.dswx.chain import dswx_chain
+    from proteus_jax.parallel.campaign import make_spatial_campaign_step
+    from proteus_jax.parallel.mesh import make_tile_space_mesh
 
     mesh = make_tile_space_mesh(2, 4)
     cfg = DswxChainConfig(mask_adjacent_to_cloud_mode='cover')
@@ -264,42 +267,22 @@ def test_spatial_step_scaled_device_scale_matches_chain():
 
 
 @pytest.mark.parametrize('mode', ['mask', 'cover'])
-def test_spatial_step_pallas_device_scale_matches_chain(mode):
-    """dp x sp + the fused Pallas kernel + the IN-KERNEL scale/offset
-    cast (bands stay raw int16 through the halo exchange; the kernel
-    casts in VMEM). Must match the single-device float chain on the
-    host-cast bands bit-for-bit."""
-    from proteus_tpu.models.dswx.chain import dswx_chain
-    from proteus_tpu.parallel.campaign import make_spatial_campaign_step
-    from proteus_tpu.parallel.mesh import make_tile_space_mesh
+def test_spatial_step_float_inputs_matches_chain(mode):
+    """dp x sp sharding of the scaled-reflectance (float32) chain on
+    host-cast bands: float bands cross the halo exchange and the result
+    matches the single-device float chain bit-for-bit."""
+    from proteus_jax.parallel.campaign import make_spatial_campaign_step
+    from proteus_jax.parallel.mesh import make_tile_space_mesh
 
     mesh = make_tile_space_mesh(2, 4)
     cfg = DswxChainConfig(mask_adjacent_to_cloud_mode=mode)
-    step = make_spatial_campaign_step(
-        cfg, mesh, float_inputs=True, device_scale=True,
-        use_pallas=True, pallas_interpret=True, pallas_block_rows=8)
-    rng = np.random.default_rng(13)
-    B, H, W = 2, 128, 64
-    raw = [rng.integers(-2000, 15000, (B, H, W)).astype(np.int16)
-           for _ in range(6)]
-    scales = (np.float32(0.0001)
-              * rng.uniform(0.5, 2.0, (B, 6))).astype(np.float32)
-    offsets = rng.choice(
-        np.asarray([0.0, -0.1, 0.25], np.float32), (B, 6))
-    fmask = rng.integers(0, 256, (B, H, W)).astype(np.uint8)
-    invalid = rng.random((B, H, W)) < 0.05
-    out, totals = step(*raw, fmask, invalid, scales, offsets)
-    cast = [scales[:, j, None, None]
-            * (raw[j].astype(np.float32) - offsets[:, j, None, None])
-            for j in range(6)]
-    for k in range(B):
-        want = dswx_chain(*[c[k] for c in cast], fmask[k], invalid[k],
-                          cfg)
-        for layer in ('DIAG', 'WTR-1', 'WTR-2', 'WTR', 'BWTR', 'CONF',
-                      'CLOUD'):
-            np.testing.assert_array_equal(
-                np.asarray(out[layer][k]), np.asarray(want[layer]),
-                err_msg=f'tile {k} {layer} mode {mode}')
+    step = make_spatial_campaign_step(cfg, mesh, float_inputs=True)
+    raw, fmask, invalid, _ = _random_batch(np.random.default_rng(13),
+                                           2, 128, 64)
+    bands = [np.float32(0.0001) * b.astype(np.float32) for b in raw]
+    out, totals = step(*bands, fmask, invalid)
+    _assert_tiles_match_chain(out, bands, fmask, invalid, [], cfg,
+                              ALL_LAYERS)
     assert int(totals['n_valid_total']) == int((~invalid).sum())
 
 
@@ -328,7 +311,7 @@ def test_campaign_runner_spatial_scaled(tmp_path):
 
 def test_campaign_cli(tmp_path):
     """Drive the dswx_campaign CLI end-to-end on two synthetic tiles."""
-    from proteus_tpu.cli.dswx_campaign import main as campaign_main
+    from proteus_jax.cli.dswx_campaign import main as campaign_main
     dirs = []
     for t in range(2):
         d = str(tmp_path / f'tile_{t}')
@@ -347,11 +330,11 @@ def test_campaign_otsu_shadow_algorithm(tmp_path):
     SHAD equals the exact otsu chain over the same warped (margined)
     DEM and differs from the default algorithm's; the cache keys the
     two algorithms separately."""
-    from proteus_tpu.core import constants as C
-    from proteus_tpu.geo.warp import warp_to_grid_device
-    from proteus_tpu.models.dswx.shadow import (
+    from proteus_jax.core import constants as C
+    from proteus_jax.geo.warp import warp_to_grid_device
+    from proteus_jax.models.dswx.shadow import (
         compute_otsu_shadow_layer_exact)
-    from proteus_tpu.parallel import campaign as camp
+    from proteus_jax.parallel import campaign as camp
     camp.ANCILLARY_CACHE.clear()
     d = str(tmp_path / 'in')
     files, _ = synthetic.make_hls_v2_dataset(d, size=96)
@@ -365,7 +348,7 @@ def test_campaign_otsu_shadow_algorithm(tmp_path):
     default = np.asarray(d_def['shadow_layer'])
     assert (got != default).any()
 
-    from proteus_tpu.runtime.orchestrator import _mean_angle
+    from proteus_jax.runtime.orchestrator import _mean_angle
     gt = d_otsu['geotransform']
     proj = d_otsu['projection']
     length, width = d_otsu['length'], d_otsu['width']
@@ -387,8 +370,8 @@ def test_campaign_cli_dispatch_forwards_scaled(tmp_path, monkeypatch):
     """Regression: the --hosts>1 dispatch branch must forward --scaled
     into every worker's runner_kwargs (it used to drop it, silently
     running the integer chain on worker hosts)."""
-    from proteus_tpu.cli import dswx_campaign
-    from proteus_tpu.parallel import dispatch
+    from proteus_jax.cli import dswx_campaign
+    from proteus_jax.parallel import dispatch
     d = str(tmp_path / 'tile_0')
     synthetic.make_hls_v2_dataset(d, size=96, seed=42)
     seen = {}
@@ -405,34 +388,24 @@ def test_campaign_cli_dispatch_forwards_scaled(tmp_path, monkeypatch):
     assert seen['runner_kwargs']['scaled_inputs'] is True
 
 
-def test_tiles_per_device_default(monkeypatch):
-    """The runner defaults tiles_per_device to the measured batch knee
-    on TPU (BENCH_BATCH.json) and to 1 elsewhere; an explicit value
-    always wins."""
-    from proteus_tpu.parallel import campaign as cmod
+def test_tiles_per_device_default():
+    """The runner defaults to one tile per device per batch on every
+    backend; an explicit value wins and sets the batch size."""
+    from proteus_jax.parallel import campaign as cmod
     mesh = make_tile_mesh()
-    assert cmod.CampaignRunner(mesh=mesh).tiles_per_device == 1
-    assert cmod.CampaignRunner(mesh=mesh,
-                               tiles_per_device=3).tiles_per_device == 3
-
-    class _FakeTpu:
-        platform = 'tpu'
-
-    monkeypatch.setattr(cmod.jax, 'devices',
-                        lambda *a, **k: [_FakeTpu()])
     r = cmod.CampaignRunner(mesh=mesh)
-    assert r.tiles_per_device == cmod.TPU_DEFAULT_TILES_PER_DEVICE
-    assert r.batch_size == mesh.shape[cmod.TILE_AXIS] \
-        * cmod.TPU_DEFAULT_TILES_PER_DEVICE
-    assert cmod.CampaignRunner(
-        mesh=mesh, tiles_per_device=1).tiles_per_device == 1
+    assert r.tiles_per_device == 1
+    assert r.batch_size == mesh.shape[cmod.TILE_AXIS]
+    r3 = cmod.CampaignRunner(mesh=mesh, tiles_per_device=3)
+    assert r3.tiles_per_device == 3
+    assert r3.batch_size == 3 * mesh.shape[cmod.TILE_AXIS]
 
 
 def test_campaign_tiles_per_device(tmp_path):
     """tiles_per_device > 1: each device's local step loops over several
     tiles per dispatch; products identical to the per-tile path."""
-    from proteus_tpu.models.dswx.chain import DswxChainConfig
-    from proteus_tpu.parallel.campaign import CampaignRunner, TileJob
+    from proteus_jax.models.dswx.chain import DswxChainConfig
+    from proteus_jax.parallel.campaign import CampaignRunner, TileJob
     dirs = []
     for t in range(4):
         d = str(tmp_path / f'tile_{t}')
@@ -452,7 +425,7 @@ def test_campaign_tiles_per_device(tmp_path):
 
     a = run('per_tile')
     b = run('batched', tiles_per_device=2)
-    from proteus_tpu.io.tiff import TiffReader
+    from proteus_jax.io.tiff import TiffReader
     for t in range(4):
         for f in sorted(glob.glob(os.path.join(a, f'tile_{t}',
                                                '*.tif'))):
@@ -466,8 +439,8 @@ def test_campaign_cli_multihost(tmp_path, monkeypatch):
     """--hosts 2 routes through the multi-host dispatcher (per-host
     manifest shards, subprocess workers)."""
     import pytest
-    monkeypatch.setenv('PROTEUS_TPU_PLATFORM', 'cpu')
-    from proteus_tpu.cli.dswx_campaign import main as campaign_main
+    monkeypatch.setenv('JAX_PLATFORMS', 'cpu')
+    from proteus_jax.cli.dswx_campaign import main as campaign_main
     dirs = []
     for t in range(2):
         d = str(tmp_path / f'tile_{t}')
@@ -488,7 +461,7 @@ def test_campaign_full_product_with_ancillaries(tmp_path):
     """Campaign runner with DEM/landcover/ocean ancillaries + browse:
     all 10 layers and browse per tile, metadata from the tile's HLS
     attributes."""
-    from proteus_tpu.cli.dswx_campaign import main as campaign_main
+    from proteus_jax.cli.dswx_campaign import main as campaign_main
     root = tmp_path
     dirs = []
     for t in range(3):
@@ -528,7 +501,7 @@ def test_campaign_full_product_with_ancillaries(tmp_path):
 def test_campaign_runner_scaled_inputs(tmp_path):
     """Scaled-reflectance campaign (float32 science chain): products
     must match the orchestrator's scaled mode on the same granule."""
-    from proteus_tpu.runtime.orchestrator import generate_dswx_layers
+    from proteus_jax.runtime.orchestrator import generate_dswx_layers
     d = str(tmp_path / 'in')
     files, _bands = synthetic.make_hls_v2_dataset(d, size=96, seed=321)
     out = str(tmp_path / 'camp')
@@ -548,17 +521,16 @@ def test_campaign_runner_scaled_inputs(tmp_path):
         np.testing.assert_array_equal(rg.read(), rr.read())
 
 
-@pytest.mark.parametrize('use_pallas', [False, True])
-def test_campaign_step_device_scale_matches_host_cast(use_pallas):
+@pytest.mark.parametrize('with_ancillaries', [False, True])
+def test_campaign_step_device_scale_matches_host_cast(with_ancillaries):
     """device_scale=True (raw int16 bands + on-device
     scale*(f32(band)-offset)) must be bit-identical to feeding the
-    host-cast float32 bands through the same float-input step — for
-    both the jnp chain and the fused Pallas kernel (interpret)."""
+    host-cast float32 bands through the same float-input step, with and
+    without the ancillary masks."""
     mesh = make_tile_mesh()
     cfg = DswxChainConfig()
-    kw = dict(use_pallas=use_pallas, float_inputs=True)
-    if use_pallas:
-        kw.update(pallas_interpret=True, pallas_block_rows=8)
+    kw = dict(float_inputs=True, with_ocean=with_ancillaries,
+              with_shadow=with_ancillaries, with_landcover=with_ancillaries)
     step_dev = make_campaign_step(cfg, mesh, device_scale=True, **kw)
     step_host = make_campaign_step(cfg, mesh, **kw)
     rng = np.random.default_rng(77)
@@ -575,11 +547,14 @@ def test_campaign_step_device_scale_matches_host_cast(use_pallas):
         np.asarray([0.0, -0.1, 0.25], np.float32), (B, 6))
     fmask = rng.integers(0, 256, (B, H, W)).astype(np.uint8)
     invalid = rng.random((B, H, W)) < 0.05
-    out_dev, tot_dev = step_dev(*raw, fmask, invalid, scales, offsets)
+    extras = _random_batch(rng, B, H, W, ancillaries=True)[3] \
+        if with_ancillaries else []
+    out_dev, tot_dev = step_dev(*raw, fmask, invalid, scales, offsets,
+                                *extras)
     cast = [scales[:, j, None, None]
             * (raw[j].astype(np.float32) - offsets[:, j, None, None])
             for j in range(6)]
-    out_host, tot_host = step_host(*cast, fmask, invalid)
+    out_host, tot_host = step_host(*cast, fmask, invalid, *extras)
     assert set(out_dev) == set(out_host)
     for k in out_dev:
         np.testing.assert_array_equal(np.asarray(out_dev[k]),
@@ -612,41 +587,25 @@ def test_campaign_runner_device_scale(tmp_path):
                 err_msg=os.path.basename(hf))
 
 
-def test_campaign_step_pallas_minimal_float(tmp_path):
-    """The float-input Pallas kernel through the packed campaign step
-    (interpret mode) matches the float jnp chain bit-for-bit."""
-    from proteus_tpu.models.dswx import host_derive
-    from proteus_tpu.models.dswx.chain import dswx_chain
+def test_campaign_step_float_inputs_matches_chain():
+    """The scaled-reflectance (float32) dp step on host-cast bands
+    matches the single-tile float chain bit-for-bit."""
     mesh = make_tile_mesh()
     cfg = DswxChainConfig()
-    step = make_campaign_step(cfg, mesh, use_pallas=True,
-                              pallas_interpret=True, pallas_block_rows=8,
-                              float_inputs=True)
-    rng = np.random.default_rng(9)
-    B, H, W = 8, 64, 64
-    bands = [(np.float32(0.0001)
-              * np.clip(rng.integers(-2000, 15000, (B, H, W)), 1,
-                        None).astype(np.float32)) for _ in range(6)]
-    fmask = rng.integers(0, 256, (B, H, W)).astype(np.uint8)
-    invalid = rng.random((B, H, W)) < 0.05
+    step = make_campaign_step(cfg, mesh, float_inputs=True)
+    raw, fmask, invalid, _ = _random_batch(np.random.default_rng(9),
+                                           8, 64, 64)
+    bands = [np.float32(0.0001) * b.astype(np.float32) for b in raw]
     out, totals = step(*bands, fmask, invalid)
-    for k in range(B):
-        minimal = {key: np.asarray(out[key][k])
-                   for key in ('PACKED_A', 'PACKED_B')}
-        derived = host_derive.derive_dependent_layers(dict(minimal))
-        want = dswx_chain(*[b[k] for b in bands], fmask[k], invalid[k],
-                          cfg)
-        for layer in ('DIAG', 'WTR-1', 'WTR-2', 'WTR', 'BWTR', 'CONF',
-                      'CLOUD'):
-            np.testing.assert_array_equal(
-                derived[layer], np.asarray(want[layer]),
-                err_msg=f'tile {k} {layer}')
+    _assert_tiles_match_chain(out, bands, fmask, invalid, [], cfg,
+                              ALL_LAYERS)
+    assert int(totals['n_valid_total']) == int((~invalid).sum())
 
 
 class TestAncillaryCache:
     def test_single_flight(self):
         import threading
-        from proteus_tpu.parallel.campaign import _AncillaryCache
+        from proteus_jax.parallel.campaign import _AncillaryCache
         cache = _AncillaryCache(max_entries=4)
         calls = []
         barrier = threading.Barrier(4)
@@ -672,7 +631,7 @@ class TestAncillaryCache:
         assert all(r is results[0] for r in results)
 
     def test_lru_and_error_eviction(self):
-        from proteus_tpu.parallel.campaign import _AncillaryCache
+        from proteus_jax.parallel.campaign import _AncillaryCache
         cache = _AncillaryCache(max_entries=2)
         a = cache.get('a', lambda: 'va')
         assert cache.get('a', lambda: 'NEW') == 'va'
@@ -687,8 +646,8 @@ class TestAncillaryCache:
         del a
 
     def test_disabled_via_env(self, monkeypatch):
-        from proteus_tpu.parallel.campaign import _AncillaryCache
-        monkeypatch.setenv('PROTEUS_TPU_ANC_CACHE', '0')
+        from proteus_jax.parallel.campaign import _AncillaryCache
+        monkeypatch.setenv('PROTEUS_ANC_CACHE', '0')
         cache = _AncillaryCache()
         calls = []
         cache.get('k', lambda: calls.append(1))
@@ -698,8 +657,8 @@ class TestAncillaryCache:
     def test_read_tile_reuses_dem_warp(self, tmp_path, monkeypatch):
         """Two jobs on the same grid share one DEM/landcover warp; the
         shadow key includes the sun angles."""
-        from proteus_tpu.parallel import campaign as camp
-        import proteus_tpu.geo.warp as warp_mod
+        from proteus_jax.parallel import campaign as camp
+        import proteus_jax.geo.warp as warp_mod
         camp.ANCILLARY_CACHE.clear()
         d = str(tmp_path / 'in')
         files, _ = synthetic.make_hls_v2_dataset(d, size=96)
@@ -772,7 +731,7 @@ class TestPrepOverlap:
 
     def test_run_preps_concurrent_and_ordered(self):
         import threading
-        from proteus_tpu.parallel.campaign import _run_preps
+        from proteus_jax.parallel.campaign import _run_preps
         barrier = threading.Barrier(2, timeout=10)
 
         def a():
@@ -786,8 +745,8 @@ class TestPrepOverlap:
         assert _run_preps([a, b]) == [{'a': 1}, {'b': 2}]
 
     def test_run_preps_serial_when_disabled(self, monkeypatch):
-        from proteus_tpu.parallel.campaign import _run_preps
-        monkeypatch.setenv('PROTEUS_TPU_PREP_THREADS', '0')
+        from proteus_jax.parallel.campaign import _run_preps
+        monkeypatch.setenv('PROTEUS_PREP_THREADS', '0')
         order = []
 
         def mk(name):
@@ -801,7 +760,7 @@ class TestPrepOverlap:
         assert out == [{'x': True}, {'y': True}, {'z': True}]
 
     def test_pool_prep_exception_propagates(self):
-        from proteus_tpu.parallel.campaign import _run_preps
+        from proteus_jax.parallel.campaign import _run_preps
 
         def ok():
             return {}
@@ -816,7 +775,7 @@ class TestPrepOverlap:
         """A broken ancillary in a pool-run prep surfaces as the same
         exception the serial code raised (the campaign retry path
         depends on it)."""
-        from proteus_tpu.parallel import campaign as camp
+        from proteus_jax.parallel import campaign as camp
         camp.ANCILLARY_CACHE.clear()
         d = str(tmp_path / 'in')
         files, _ = synthetic.make_hls_v2_dataset(d, size=96)
@@ -827,28 +786,18 @@ class TestPrepOverlap:
         camp.ANCILLARY_CACHE.clear()
 
 
-def test_batched_pallas_step_keeps_stack_out_of_kernel_fusion():
-    """Regression for the round-5 scoped-VMEM incident: at B>1 the
-    per-tile Pallas outputs must pass through an optimization_barrier
-    before the batch ``jnp.stack`` — without it XLA fuses the B-way
-    concat staging INTO the Mosaic custom fusion and the 12-input
-    all-ancillary program exceeds the 16 MB scoped-vmem budget at
-    3660^2 on real TPU (cold-grid/soak crash, EVIDENCE_ROUND.json).
-    The VMEM failure itself only reproduces on hardware; this checks
-    the structural guard survives in the traced program."""
+def test_campaign_step_browse_matches_chain():
+    """compute_browse with non-default browse colours (not-water,
+    cloud and snow as nodata): the batched step's BROWSE layer matches
+    the single-tile chain."""
     mesh = make_tile_mesh()
-    cfg = DswxChainConfig()
-    step = make_campaign_step(cfg, mesh, use_pallas=True,
-                              with_ocean=True, with_shadow=True,
-                              with_landcover=True,
-                              pallas_interpret=True, pallas_block_rows=8)
-    B, H, W = 16, 64, 64  # 2 tiles per device: a real per-device stack
-    bands = [np.ones((B, H, W), np.int16) for _ in range(6)]
-    fmask = np.zeros((B, H, W), np.uint8)
-    invalid = np.zeros((B, H, W), bool)
-    ocean = np.ones((B, H, W), np.uint8)
-    shadow = np.ones((B, H, W), np.uint8)
-    landcover = np.ones((B, H, W), np.uint8)
-    jaxpr = jax.make_jaxpr(step)(*bands, fmask, invalid, ocean, shadow,
-                                 landcover)
-    assert 'optimization_barrier' in str(jaxpr)
+    cfg = DswxChainConfig(not_water_in_browse='nodata',
+                          cloud_in_browse='nodata', snow_in_browse='nodata',
+                          exclude_psw_aggressive_in_browse=True)
+    step = make_campaign_step(cfg, mesh, compute_browse=True)
+    bands, fmask, invalid, _ = _random_batch(np.random.default_rng(21),
+                                             8, 64, 64)
+    out, _totals = step(*bands, fmask, invalid)
+    _assert_tiles_match_chain(out, bands, fmask, invalid, [], cfg,
+                              ALL_LAYERS + ('BROWSE',),
+                              compute_browse=True)

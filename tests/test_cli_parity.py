@@ -18,7 +18,7 @@ import pytest
 
 import refbridge
 
-from proteus_tpu.cli.args import get_dswx_hls_cli_parser
+from proteus_jax.cli.args import get_dswx_hls_cli_parser
 
 REF = refbridge.load_reference_dswx()
 

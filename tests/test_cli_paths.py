@@ -11,10 +11,10 @@ import pytest
 import oracle
 import synthetic
 
-from proteus_tpu.cli.dswx_hls import main as dswx_hls_main
-from proteus_tpu.config import validator
-from proteus_tpu.core.thresholds import HlsThresholds
-from proteus_tpu.io.tiff import TiffReader
+from proteus_jax.cli.dswx_hls import main as dswx_hls_main
+from proteus_jax.config import validator
+from proteus_jax.core.thresholds import HlsThresholds
+from proteus_jax.io.tiff import TiffReader
 
 T = HlsThresholds()
 TDICT = {k: getattr(T, k) for k in T.__dataclass_fields__}
@@ -121,7 +121,7 @@ def test_schema_validation_rejects_bad_runconfig(dataset, tmp_path):
 
 
 def test_invalid_shadow_algorithm_raises(dataset, tmp_path):
-    from proteus_tpu.runtime.orchestrator import generate_dswx_layers
+    from proteus_jax.runtime.orchestrator import generate_dswx_layers
     root, files, _, anc = dataset
     with pytest.raises(ValueError):
         generate_dswx_layers(files,
@@ -142,7 +142,7 @@ def test_stage_timers_logged(dataset, tmp_path, caplog):
 
 
 def test_validate_cog_cli(dataset, tmp_path, capsys):
-    from proteus_tpu.cli.validate_cog import main as vmain
+    from proteus_jax.cli.validate_cog import main as vmain
     root, files, _, anc = dataset
     assert vmain([files[0]]) == 0
     bad = str(tmp_path / 'bad.tif')
@@ -152,7 +152,7 @@ def test_validate_cog_cli(dataset, tmp_path, capsys):
 
 def test_full_log_format(tmp_path):
     import logging
-    from proteus_tpu.runtime.logging_util import create_logger
+    from proteus_jax.runtime.logging_util import create_logger
     logf = str(tmp_path / 'x.log')
     lg = create_logger(logf, full_log_formatting=True,
                        capture_std_streams=False)
@@ -166,7 +166,7 @@ def test_full_log_format(tmp_path):
 
 def test_stream_to_logger():
     import logging
-    from proteus_tpu.runtime.logging_util import StreamToLogger
+    from proteus_jax.runtime.logging_util import StreamToLogger
     records = []
 
     class L:

@@ -12,12 +12,12 @@ NAD27, Tokyo, Pulkovo 1942, CH1903) end-to-end.
 import numpy as np
 import pytest
 
-from proteus_tpu.geo.crs import (
+from proteus_jax.geo.crs import (
     CRS, geodetic_to_geocentric, geocentric_to_geodetic,
     helmert_position_vector, shift_datum, transform_points)
-from proteus_tpu.geo.warp import warp_to_grid, warp_to_grid_device
-from proteus_tpu.io.cog import write_cog
-from proteus_tpu.io.tiff import TiffReader
+from proteus_jax.geo.warp import warp_to_grid, warp_to_grid_device
+from proteus_jax.io.cog import write_cog
+from proteus_jax.io.tiff import TiffReader
 
 
 def _dms(d, m, s):
@@ -269,7 +269,7 @@ class TestDatumTiffIntegration:
         """A DEM delivered in OSGB36 / British National Grid warped
         onto a WGS84 UTM 30N tile: accepted by the coverage check,
         datum shift applied, device warp bit-identical to host."""
-        from proteus_tpu.geo.coverage import check_ancillary_inputs
+        from proteus_jax.geo.coverage import check_ancillary_inputs
         rng = np.random.default_rng(1936)
         h = w = 300
         # around 52N 2W (BNG ~400000E 233500N)

@@ -12,12 +12,12 @@ swisstopo LV03 anchor.
 import numpy as np
 import pytest
 
-from proteus_tpu.geo.crs import (
+from proteus_jax.geo.crs import (
     CRS, omerc_forward, omerc_inverse, somerc_forward, somerc_inverse,
     transform_points)
-from proteus_tpu.geo.warp import warp_to_grid, warp_to_grid_device
-from proteus_tpu.io.cog import write_cog
-from proteus_tpu.io.tiff import TiffReader
+from proteus_jax.geo.warp import warp_to_grid, warp_to_grid_device
+from proteus_jax.io.cog import write_cog
+from proteus_jax.io.tiff import TiffReader
 
 
 def _dms(d, m, s):
@@ -156,7 +156,7 @@ class TestKrovak:
         """EPSG GN7-2 Krovak worked example: 50°12'32.4416"N
         16°50'59.1790"E -> southing 1050538.64, westing 568991.00
         (east-north: E = -568991.00, N = -1050538.64)."""
-        from proteus_tpu.geo.crs import krovak_forward, krovak_inverse
+        from proteus_jax.geo.crs import krovak_forward, krovak_inverse
         lat, lon = _dms(50, 12, 32.4416), _dms(16, 50, 59.1790)
         E, N = krovak_forward(lat, lon, *self.ARGS)
         assert abs(-E - 568991.00) < 0.02
@@ -165,7 +165,7 @@ class TestKrovak:
         assert abs(la - lat) < 1e-11 and abs(lo - lon) < 1e-11
 
     def test_roundtrip_and_conformality(self):
-        from proteus_tpu.geo.crs import krovak_forward, krovak_inverse
+        from proteus_jax.geo.crs import krovak_forward, krovak_inverse
         rng = np.random.default_rng(5514)
         lat = rng.uniform(47.8, 51.2, 500)
         lon = rng.uniform(12.0, 22.5, 500)
@@ -289,7 +289,7 @@ class TestObliqueMercatorCrsPlumbing:
         """A DEM delivered in NAD83 / Alaska zone 1 (Hotine variant A)
         warped onto a WGS84 UTM 8N tile: accepted by the coverage
         check, device warp bit-identical to host."""
-        from proteus_tpu.geo.coverage import check_ancillary_inputs
+        from proteus_jax.geo.coverage import check_ancillary_inputs
         rng = np.random.default_rng(26931)
         h = w = 300
         # around 58N 135W: EPSG:26931 coords

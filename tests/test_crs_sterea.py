@@ -12,12 +12,12 @@ Note 7-2 worked examples.
 import numpy as np
 import pytest
 
-from proteus_tpu.geo.crs import (
+from proteus_jax.geo.crs import (
     CRS, sterea_forward, sterea_inverse, eqc_forward, eqc_inverse,
     transform_points)
-from proteus_tpu.geo.warp import warp_to_grid
-from proteus_tpu.io.cog import write_cog
-from proteus_tpu.io.tiff import TiffReader
+from proteus_jax.geo.warp import warp_to_grid
+from proteus_jax.io.cog import write_cog
+from proteus_jax.io.tiff import TiffReader
 
 
 def _dms(d, m, s):

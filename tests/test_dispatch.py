@@ -1,8 +1,8 @@
 """Multi-host campaign dispatch: 2-process integration + shard/merge units.
 
-The TPU-native scale-out layer (SURVEY.md §2/§5 commitment): tiles are
-partitioned across hosts, each host keeps a single-writer manifest shard,
-and lost hosts' tiles are recoverable by re-dispatch.
+The scale-out layer (SURVEY.md §2/§5 commitment): tiles are partitioned
+across worker processes, each worker keeps a single-writer manifest
+shard, and lost workers' tiles are recoverable by re-dispatch.
 """
 
 import json
@@ -15,8 +15,8 @@ import pytest
 sys.path.insert(0, os.path.dirname(__file__))
 import synthetic  # noqa: E402
 
-from proteus_tpu.parallel.campaign import CampaignManifest, TileJob
-from proteus_tpu.parallel import dispatch
+from proteus_jax.parallel.campaign import CampaignManifest, TileJob
+from proteus_jax.parallel import dispatch
 
 
 class TestUnits:
@@ -49,6 +49,32 @@ class TestUnits:
         merged = dispatch.merge_manifests(mp, 2)
         assert merged.state['t0']['status'] == 'done'
         assert merged.state['t1']['status'] == 'done'
+
+
+class TestWorkerEnvs:
+    """On a GPU machine every worker process gets a card of its own."""
+
+    def test_one_card_per_worker(self):
+        envs = dispatch.worker_envs(2, platform='cuda', gpus=['0', '3'])
+        assert envs == [{'CUDA_VISIBLE_DEVICES': '0'},
+                        {'CUDA_VISIBLE_DEVICES': '3'}]
+
+    def test_more_workers_than_cards_refused(self):
+        with pytest.raises(ValueError, match='card of its own'):
+            dispatch.worker_envs(3, platform='cuda', gpus=['0', '1'])
+
+    def test_cpu_workers_share_the_backend(self):
+        assert dispatch.worker_envs(3, platform='cpu',
+                                    gpus=['0']) == [{}, {}, {}]
+
+    def test_no_card_no_override(self):
+        assert dispatch.worker_envs(2, platform='cuda', gpus=[]) == [{}, {}]
+
+    def test_visible_gpus_honours_cuda_visible_devices(self, monkeypatch):
+        monkeypatch.setenv('CUDA_VISIBLE_DEVICES', '2, 5')
+        assert dispatch.visible_gpus() == ['2', '5']
+        envs = dispatch.worker_envs(2, platform='cuda')
+        assert [e['CUDA_VISIBLE_DEVICES'] for e in envs] == ['2', '5']
 
 
 @pytest.fixture(scope='module')

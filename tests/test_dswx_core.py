@@ -1,20 +1,20 @@
-"""Bit-exactness tests: TPU device chain vs the NumPy float64 oracle."""
+"""Bit-exactness tests: the device chain vs the NumPy float64 oracle."""
 
 import numpy as np
 import pytest
 
 import oracle
 
-from proteus_tpu.core import constants as C
-from proteus_tpu.core.thresholds import HlsThresholds
-from proteus_tpu.models.dswx.chain import DswxChainConfig, dswx_chain
-from proteus_tpu.models.dswx.diagnostics import (compute_diagnostic_tests,
+from proteus_jax.core import constants as C
+from proteus_jax.core.thresholds import HlsThresholds
+from proteus_jax.models.dswx.chain import DswxChainConfig, dswx_chain
+from proteus_jax.models.dswx.diagnostics import (compute_diagnostic_tests,
                                                  get_binary_representation)
-from proteus_tpu.models.dswx.interpretation import (generate_interpreted_layer,
+from proteus_jax.models.dswx.interpretation import (generate_interpreted_layer,
                                                     collapse_wtr_classes)
-from proteus_tpu.models.dswx import masking
-from proteus_tpu.models.dswx.shadow import compute_opera_shadow_layer
-from proteus_tpu.models.dswx.landcover import create_landcover_mask_arrays
+from proteus_jax.models.dswx import masking
+from proteus_jax.models.dswx.shadow import compute_opera_shadow_layer
+from proteus_jax.models.dswx.landcover import create_landcover_mask_arrays
 
 RNG = np.random.default_rng(42)
 T = HlsThresholds()
@@ -263,7 +263,7 @@ class TestResample30m:
     """BASELINE config 2: raw Sentinel-2 10 m / 20 m -> 30 m ingest."""
 
     def test_10m_exact_mean(self):
-        from proteus_tpu.ops.resample import resample_to_30m
+        from proteus_jax.ops.resample import resample_to_30m
         x = np.arange(36, dtype=np.int16).reshape(6, 6)
         out = np.asarray(resample_to_30m(x, 10))
         assert out.shape == (2, 2)
@@ -271,7 +271,7 @@ class TestResample30m:
             out, x.reshape(2, 3, 2, 3).mean(axis=(1, 3)))
 
     def test_20m_rational_resample(self):
-        from proteus_tpu.ops.resample import resample_to_30m
+        from proteus_jax.ops.resample import resample_to_30m
         x = np.arange(16, dtype=np.float32).reshape(4, 4)
         out = np.asarray(resample_to_30m(x, 20))
         assert out.shape == (6, 6)
@@ -281,7 +281,7 @@ class TestResample30m:
         assert float(out.mean()) == pytest.approx(float(x.mean()))
 
     def test_30m_identity(self):
-        from proteus_tpu.ops.resample import resample_to_30m
+        from proteus_jax.ops.resample import resample_to_30m
         x = np.arange(9, dtype=np.int16).reshape(3, 3)
         np.testing.assert_array_equal(np.asarray(resample_to_30m(x, 30)),
                                       x)
@@ -347,7 +347,7 @@ class TestOtsuParity:
             icv = w1[:-1] * w2[1:] * (m1[:-1] - m2[1:]) ** 2
         thr = mids[:-1][np.nanargmax(icv)]
         want = x > thr
-        from proteus_tpu.ops.otsu import otsu_binarize
+        from proteus_jax.ops.otsu import otsu_binarize
         got = np.asarray(otsu_binarize(x))
         assert (got != want).mean() < 1e-3  # f32 binning edge pixels only
 
@@ -355,7 +355,7 @@ class TestOtsuParity:
 class TestMorphologyDisk:
     def test_dilate_disk_matches_scipy_edt(self):
         from scipy.ndimage import distance_transform_edt
-        from proteus_tpu.ops.morphology import dilate_disk
+        from proteus_jax.ops.morphology import dilate_disk
         x = np.zeros((48, 48), bool)
         x[20, 20] = True
         x[5, 40] = True
@@ -367,7 +367,7 @@ class TestMorphologyDisk:
 
 class TestHillshadeAnalytic:
     def test_flat_dem_constant_hillshade(self):
-        from proteus_tpu.models.dswx.shadow import compute_hillshade
+        from proteus_jax.models.dswx.shadow import compute_hillshade
         dem = np.full((32, 32), 500.0, np.float32)
         hs = np.asarray(compute_hillshade(dem, 135.0, 45.0))
         v = np.float32(1.0 + 254.0 * np.sin(np.radians(45.0)))
@@ -377,7 +377,7 @@ class TestHillshadeAnalytic:
         assert (hs[0, :] == 0).all() and (hs[:, -1] == 0).all()
 
     def test_sun_facing_slope_brighter(self):
-        from proteus_tpu.models.dswx.shadow import compute_hillshade
+        from proteus_jax.models.dswx.shadow import compute_hillshade
         yy, xx = np.mgrid[0:64, 0:64]
         # slope dipping to the east; sun from the east (az=90) lights it
         dem_east = (-(xx.astype(np.float32)) * 10.0)
@@ -386,7 +386,7 @@ class TestHillshadeAnalytic:
         assert hs_lit[32, 32] > hs_dark[32, 32]
 
     def test_flat_dem_shadow_depends_on_sun_elevation(self):
-        from proteus_tpu.models.dswx.shadow import \
+        from proteus_jax.models.dswx.shadow import \
             compute_opera_shadow_layer
         dem = np.full((32, 32), 100.0, np.float32)
         # flat ground: local incidence angle == solar zenith angle
@@ -416,7 +416,7 @@ class TestHillshadeExact:
 
     def test_device_matches_host_oracle(self):
         import jax.numpy as jnp
-        from proteus_tpu.models.dswx.shadow import (
+        from proteus_jax.models.dswx.shadow import (
             compute_hillshade_exact, _host_hillshade_gdal)
         for seed, az, elev in [(0, 135.0, 45.0), (1, 277.3, 18.0),
                                (2, 90.0, 75.0), (3, 0.0, 2.0)]:
@@ -435,7 +435,7 @@ class TestHillshadeExact:
         dozens of x.5 round-half boundaries — the regime where a plain
         f32 chain flips bytes vs the f64 oracle."""
         import jax.numpy as jnp
-        from proteus_tpu.models.dswx.shadow import (
+        from proteus_jax.models.dswx.shadow import (
             compute_hillshade_exact, _host_hillshade_gdal)
         col = np.arange(2048, dtype=np.float64)
         dem = (0.01 * col ** 2).astype(np.float32)[None, :].repeat(
@@ -453,7 +453,7 @@ class TestHillshadeExact:
         Horn sums overflow ONLY the f32 intermediates must be resolved
         against the (non-overflowing) f64 oracle."""
         import jax.numpy as jnp
-        from proteus_tpu.models.dswx.shadow import (
+        from proteus_jax.models.dswx.shadow import (
             compute_hillshade_exact, _host_hillshade_gdal)
         dem = self._terrain(7, (64, 64))
         dem[10:14, 20:24] = np.nan
@@ -467,7 +467,7 @@ class TestHillshadeExact:
     def test_fallback_full_host_recompute(self, monkeypatch):
         """Band budget overflow falls back to the full host oracle."""
         import jax.numpy as jnp
-        from proteus_tpu.models.dswx import shadow as sh
+        from proteus_jax.models.dswx import shadow as sh
         monkeypatch.setattr(sh, '_MAX_UNCERTAIN_HS', 0)
         dem = self._terrain(5, (32, 32))
         want = sh._host_hillshade_gdal(dem, 135.0, 45.0, 30.0, -30.0)
@@ -478,7 +478,7 @@ class TestHillshadeExact:
 
 
 def test_make_jitted_chain_helper():
-    from proteus_tpu.models.dswx.chain import make_jitted_chain
+    from proteus_jax.models.dswx.chain import make_jitted_chain
     cfg = DswxChainConfig()
     fn = make_jitted_chain(cfg, with_shadow=True, compute_browse=False)
     bands = clipped(random_bands((32, 32)))

@@ -11,7 +11,7 @@ import pytest
 
 import jax
 
-from proteus_tpu.core.f32exact import (int_gt_bound, int_lt_bound,
+from proteus_jax.core.f32exact import (int_gt_bound, int_lt_bound,
                                        ratio_boundary, ratio_cmp)
 
 DEFAULT_RATIO_THRESHOLDS = [0.124, -0.44, 0.7, -0.5, 0.0]
@@ -126,8 +126,8 @@ class TestF32RatioCmp:
         # no normal-f32 boundary decomposition) must not crash the jnp
         # diagnostic chain: it falls back to an approximate f32 division
         # compare (ADVICE round 2)
-        from proteus_tpu.core.thresholds import HlsThresholds
-        from proteus_tpu.models.dswx.diagnostics import \
+        from proteus_jax.core.thresholds import HlsThresholds
+        from proteus_jax.models.dswx.diagnostics import \
             compute_diagnostic_tests
         rng = np.random.default_rng(7)
         t = HlsThresholds(wigt=1e-35, awgt=0.0, pswt_1_mndwi=-1e-32,

@@ -4,12 +4,12 @@ exact), antimeridian wrap, ocean mask, coverage checks."""
 import numpy as np
 import pytest
 
-from proteus_tpu.geo.crs import (CRS, transform_points, utm_forward,
+from proteus_jax.geo.crs import (CRS, transform_points, utm_forward,
                                  utm_inverse)
-from proteus_tpu.geo.mgrs import (get_hls_geographic_boundaries_from_mgrs_tile,
+from proteus_jax.geo.mgrs import (get_hls_geographic_boundaries_from_mgrs_tile,
                                   mgrs_to_utm, mgrs_tile_geotransform)
-from proteus_tpu.geo.warp import warp_to_grid, warp_to_grid_device
-from proteus_tpu.io.cog import write_cog
+from proteus_jax.geo.warp import warp_to_grid, warp_to_grid_device
+from proteus_jax.io.cog import write_cog
 
 RNG = np.random.default_rng(5)
 
@@ -87,7 +87,7 @@ class TestWarp:
         out = warp_to_grid(path, tile_gt, 'EPSG:32615', 200, 200)
         # direct check at a few pixels: inverse-project the pixel center,
         # find the nearest source pixel, compare the encoded value
-        from proteus_tpu.geo.crs import utm_inverse
+        from proteus_jax.geo.crs import utm_inverse
         for (i, j) in [(0, 0), (50, 120), (199, 199), (123, 7)]:
             x = tile_gt[0] + (j + 0.5) * 30.0
             y = tile_gt[3] - (i + 0.5) * 30.0
@@ -218,7 +218,7 @@ class TestWarp:
 class TestOceanMask:
     def test_land_side_and_margin(self, tmp_path):
         import synthetic
-        from proteus_tpu.geo.polygon import create_ocean_mask
+        from proteus_jax.geo.polygon import create_ocean_mask
         size = 200
         shore = synthetic.make_shoreline(str(tmp_path), size=size)
         gt = synthetic.geotransform()
@@ -236,7 +236,7 @@ class TestOceanMask:
 class TestCoverage:
     def test_full_and_missing(self, tmp_path):
         import synthetic
-        from proteus_tpu.geo.coverage import check_ancillary_inputs
+        from proteus_jax.geo.coverage import check_ancillary_inputs
         size = 64
         dem = synthetic.make_dem(str(tmp_path), size=size)
         lc = synthetic.make_landcover(str(tmp_path), size=size)
@@ -259,7 +259,7 @@ class TestCoverage:
 
     def test_partial_coverage_error(self, tmp_path):
         """A DEM that misses part of the tile must raise."""
-        from proteus_tpu.geo.coverage import check_ancillary_inputs
+        from proteus_jax.geo.coverage import check_ancillary_inputs
         import synthetic
         h = w = 50
         gt = (-90.9, 0.004, 0.0, 30.6, 0.0, -0.004)  # covers a corner only
@@ -277,7 +277,7 @@ class TestPolarStereographic:
     def test_epsg_guidance_note_example(self):
         """EPSG Guidance Note 7-2 worked example for Polar Stereographic
         variant B (EPSG:3032): 75S 120E -> E 7255380.79 N 7053389.56."""
-        from proteus_tpu.geo.crs import (polar_stereo_forward,
+        from proteus_jax.geo.crs import (polar_stereo_forward,
                                          polar_stereo_inverse)
         E, N = polar_stereo_forward(-75.0, 120.0, -71.0, 70.0, 6e6, 6e6,
                                     False)
@@ -289,7 +289,7 @@ class TestPolarStereographic:
 
     @pytest.mark.parametrize('epsg', [3031, 3413, 3976])
     def test_roundtrip_and_unit_scale(self, epsg):
-        from proteus_tpu.geo.crs import (CRS, polar_stereo_forward,
+        from proteus_jax.geo.crs import (CRS, polar_stereo_forward,
                                          polar_stereo_inverse)
         ps = CRS.from_epsg(epsg).polar_stereo
         rng = np.random.default_rng(epsg)
@@ -328,7 +328,7 @@ class TestPolarStereographic:
                    0.0, -30.0)
         tile_gt = (460000.0, 30.0, 0.0, 2286000.0, 0.0, -30.0)
         proj = 'EPSG:32731'
-        from proteus_tpu.geo.crs import transform_points
+        from proteus_jax.geo.crs import transform_points
         # confirm the tile's center actually lands inside the PS source
         cx, cy = transform_points(proj, 'EPSG:3031',
                                   np.array([462000.0]),
@@ -360,7 +360,7 @@ class TestPolarStereographic:
         """A non-4326/UTM/PS ancillary must fail inside
         check_ancillary_inputs with a clear message, not mid-warp."""
         import synthetic
-        from proteus_tpu.geo.coverage import check_ancillary_inputs
+        from proteus_jax.geo.coverage import check_ancillary_inputs
         size = 64
         dem = synthetic.make_dem(str(tmp_path), size=size)
         arr = np.zeros((50, 50), np.float32)
@@ -380,7 +380,7 @@ class TestWidenedCrs:
     reference accepts any OSR SRS, dswx_hls.py:3385-3461)."""
 
     def test_nad83_utm_agrees_with_wgs84_utm(self):
-        from proteus_tpu.geo.crs import transform_points
+        from proteus_jax.geo.crs import transform_points
         lon = np.linspace(-95.9, -90.1, 200)
         lat = np.linspace(25.0, 49.0, 200)
         x83, y83 = transform_points(4269, 26915, lon, lat)
@@ -395,7 +395,7 @@ class TestWidenedCrs:
         (25832, (6, 12), (36, 70)),       # ETRS89 / UTM 32N
     ])
     def test_grs80_utm_roundtrip(self, epsg, lon_range, lat_range):
-        from proteus_tpu.geo.crs import CRS, utm_forward, utm_inverse
+        from proteus_jax.geo.crs import CRS, utm_forward, utm_inverse
         crs = CRS.from_epsg(epsg)
         assert crs.supported and crs.ellipsoid == 'GRS80'
         rng = np.random.default_rng(epsg)
@@ -410,7 +410,7 @@ class TestWidenedCrs:
         """EPSG Guidance Note 7-2 worked example for Polar Stereographic
         variant A (WGS 84 / UPS North, EPSG:5041):
         73N 44E -> E 3320416.75 N 632668.43."""
-        from proteus_tpu.geo.crs import (CRS, polar_stereo_forward,
+        from proteus_jax.geo.crs import (CRS, polar_stereo_forward,
                                          polar_stereo_inverse)
         ps = CRS.from_epsg(5041).polar_stereo
         E, N = polar_stereo_forward(73.0, 44.0, *ps)
@@ -421,7 +421,7 @@ class TestWidenedCrs:
 
     @pytest.mark.parametrize('epsg', [5041, 5042])
     def test_ups_roundtrip_and_scale(self, epsg):
-        from proteus_tpu.geo.crs import (CRS, polar_stereo_forward,
+        from proteus_jax.geo.crs import (CRS, polar_stereo_forward,
                                          polar_stereo_inverse)
         ps = CRS.from_epsg(epsg).polar_stereo
         assert len(ps) == 6 and ps[5] == 0.994
@@ -449,7 +449,7 @@ class TestWidenedCrs:
     @pytest.mark.parametrize('epsg', [26915, 25832, 5041, 5042, 4269,
                                       4258])
     def test_wkt_proj4_roundtrip(self, epsg):
-        from proteus_tpu.geo.crs import CRS
+        from proteus_jax.geo.crs import CRS
         crs = CRS.from_epsg(epsg)
         assert CRS.from_wkt(crs.to_wkt()).epsg == epsg
         assert CRS.from_proj4(crs.to_proj4()).epsg == epsg
@@ -462,7 +462,7 @@ class TestWidenedCrs:
         """A DEM delivered in NAD83 UTM (EPSG:26915) warped onto a
         WGS84 UTM 15N tile: accepted by the coverage check, and device
         warp bit-identical to host."""
-        from proteus_tpu.geo.coverage import check_ancillary_inputs
+        from proteus_jax.geo.coverage import check_ancillary_inputs
         rng = np.random.default_rng(9)
         h = w = 300
         gt = (580000.0, 60.0, 0.0, 3310000.0, 0.0, -60.0)
@@ -498,7 +498,7 @@ class TestEqualAreaCrs:
     def test_laea_epsg_guidance_note_example(self):
         """EPSG Guidance Note 7-2 worked example (ETRS89 / LAEA Europe):
         50N 5E -> E 3962799.45, N 2999718.85."""
-        from proteus_tpu.geo.crs import (CRS, laea_forward, laea_inverse)
+        from proteus_jax.geo.crs import (CRS, laea_forward, laea_inverse)
         p = CRS.from_epsg(3035).laea
         E, N = laea_forward(50.0, 5.0, *p)
         assert abs(E - 3962799.45) < 0.01
@@ -510,7 +510,7 @@ class TestEqualAreaCrs:
         """Snyder 1987 Appendix numerical example for the ellipsoidal
         Albers (Clarke 1866, sp 29.5/45.5, origin 23N 96W): 35N 75W ->
         x 1885472.7, y 1535925.0 (published to 0.1 m)."""
-        from proteus_tpu.geo import crs
+        from proteus_jax.geo import crs
         crs._ELLIPSOIDS.setdefault(
             'CLARKE1866', (6378206.4, 294.9786982139006))
         x, y = crs.albers_forward(35.0, -75.0, 'CLARKE1866',
@@ -537,11 +537,11 @@ class TestEqualAreaCrs:
     def test_albers_unit_scale_at_standard_parallels(self):
         """k = 1 along both standard parallels (the defining property
         of the secant conic; pins n and C)."""
-        from proteus_tpu.geo.crs import CRS, albers_forward
+        from proteus_jax.geo.crs import CRS, albers_forward
         for epsg in (5070, 3577):
             p = CRS.from_epsg(epsg).albers
             ell, lat0, lon0, sp1, sp2 = p[:5]
-            from proteus_tpu.geo.crs import _ell_consts
+            from proteus_jax.geo.crs import _ell_consts
             a, e2, _ = _ell_consts(ell)
             for sp in (sp1, sp2):
                 x1, y1 = albers_forward(sp, lon0, *p)
@@ -557,7 +557,7 @@ class TestEqualAreaCrs:
         """|det d(x,y)/d(lon,lat)| == a^2 (1-e2) cos(lat) /
         (1-e2 sin^2 lat)^2 everywhere — the equal-area property, an
         implementation check independent of any published vector."""
-        from proteus_tpu.geo.crs import CRS, _ell_consts, transform_points
+        from proteus_jax.geo.crs import CRS, _ell_consts, transform_points
         rng = np.random.default_rng(7 * epsg)
         la, lb, lo, hi = self._DOMAINS[epsg]
         lat = rng.uniform(la + 0.1, lb - 0.1, 200)
@@ -587,7 +587,7 @@ class TestEqualAreaCrs:
 
     @pytest.mark.parametrize('epsg', [5070, 3577, 3035, 6931, 6932])
     def test_wkt_proj4_roundtrip(self, epsg):
-        from proteus_tpu.geo.crs import CRS
+        from proteus_jax.geo.crs import CRS
         crs = CRS.from_epsg(epsg)
         assert CRS.from_wkt(crs.to_wkt()).epsg == epsg
         assert CRS.from_proj4(crs.to_proj4()).epsg == epsg
@@ -605,7 +605,7 @@ class TestEqualAreaCrs:
         """A DEM delivered in an equal-area grid warped onto a UTM
         tile: accepted by the coverage check, and device warp
         bit-identical to host."""
-        from proteus_tpu.geo.coverage import check_ancillary_inputs
+        from proteus_jax.geo.coverage import check_ancillary_inputs
         rng = np.random.default_rng(epsg)
         h = w = 300
         cx, cy = transform_points(tile_proj, f'EPSG:{epsg}',
@@ -646,7 +646,7 @@ class TestLambertConformalConic:
         """Snyder 1987 Appendix numerical example for the ellipsoidal
         LCC 2SP (Clarke 1866, sp 33/45, origin 23N 96W): 35N 75W ->
         x 1894410.9, y 1564649.5 (published to 0.1 m)."""
-        from proteus_tpu.geo import crs
+        from proteus_jax.geo import crs
         crs._ELLIPSOIDS.setdefault(
             'CLARKE1866', (6378206.4, 294.9786982139006))
         x, y = crs.lcc_forward(35.0, -75.0, 'CLARKE1866',
@@ -655,7 +655,7 @@ class TestLambertConformalConic:
         assert abs(y - 1564649.5) < 0.5
 
     def test_origin_anchors(self):
-        from proteus_tpu.geo.crs import CRS, lcc_forward
+        from proteus_jax.geo.crs import CRS, lcc_forward
         x, y = lcc_forward(46.5, 3.0, *CRS.from_epsg(2154).lcc)
         assert abs(x - 700000.0) < 1e-6 and abs(y - 6600000.0) < 1e-6
         x, y = lcc_forward(49.0, -95.0, *CRS.from_epsg(3978).lcc)
@@ -666,7 +666,7 @@ class TestLambertConformalConic:
         """Forward/inverse closure; meridian scale == parallel scale
         everywhere (conformality); k = 1 along both standard parallels
         — together these pin the 2SP constants without pyproj."""
-        from proteus_tpu.geo.crs import CRS, _ell_consts, lcc_forward, \
+        from proteus_jax.geo.crs import CRS, _ell_consts, lcc_forward, \
             lcc_inverse
         p = CRS.from_epsg(epsg).lcc
         rng = np.random.default_rng(epsg)
@@ -698,7 +698,7 @@ class TestLambertConformalConic:
 
     @pytest.mark.parametrize('epsg', [3978, 2154])
     def test_wkt_proj4_roundtrip(self, epsg):
-        from proteus_tpu.geo.crs import CRS
+        from proteus_jax.geo.crs import CRS
         crs = CRS.from_epsg(epsg)
         assert CRS.from_wkt(crs.to_wkt()).epsg == epsg
         assert CRS.from_proj4(crs.to_proj4()).epsg == epsg
@@ -710,7 +710,7 @@ class TestLambertConformalConic:
         """A DEM delivered in Canada Atlas Lambert (EPSG:3978) warped
         onto a UTM 14N tile: accepted by the coverage check, device
         warp bit-identical to host."""
-        from proteus_tpu.geo.coverage import check_ancillary_inputs
+        from proteus_jax.geo.coverage import check_ancillary_inputs
         rng = np.random.default_rng(3978)
         h = w = 300
         tile_xy = (500000.0, 6094000.0)   # ~55N, 99W (Manitoba)
@@ -778,7 +778,7 @@ class TestUserDefinedCrs:
     def test_general_tm_reproduces_utm(self):
         """The parameterized TM engine with UTM parameters is the UTM
         engine, bit for bit."""
-        from proteus_tpu.geo.crs import tm_forward_general, utm_forward
+        from proteus_jax.geo.crs import tm_forward_general, utm_forward
         rng = np.random.default_rng(2)
         lat = rng.uniform(-80, 84, 500)
         lon = rng.uniform(-96, -90, 500)
@@ -791,7 +791,7 @@ class TestUserDefinedCrs:
         """EPSG Guidance Note 7-2 LCC 1SP worked example (Jamaica 1969
         National Grid, Clarke 1866): 17d55m55.8sN 76d56m37.26sW ->
         E 255966.58, N 142493.51."""
-        from proteus_tpu.geo import crs
+        from proteus_jax.geo import crs
         crs._ELLIPSOIDS.setdefault(
             'CLARKE1866', (6378206.4, 294.9786982139006))
         E, N = crs.lcc_forward(17 + 55 / 60 + 55.8 / 3600,
@@ -805,7 +805,7 @@ class TestUserDefinedCrs:
         """Custom CRS survive to_wkt/from_wkt, to_proj4/from_proj4, and
         a write_cog -> TiffReader.crs() geokey round-trip (PCS 32767 +
         parameter geokeys, GDAL's encoding of a non-EPSG SRS)."""
-        from proteus_tpu.io.tiff import TiffReader
+        from proteus_jax.io.tiff import TiffReader
         customs = [
             CRS.from_wkt(self.OSGB_WKT),
             # Texas Centric Albers (EPSG:3083's parameters, carried as
@@ -832,7 +832,7 @@ class TestUserDefinedCrs:
     def test_warp_and_coverage_with_user_defined_source(self, tmp_path):
         """A DEM in a user-defined Albers accepted by the coverage
         check; device warp bit-identical to host."""
-        from proteus_tpu.geo.coverage import check_ancillary_inputs
+        from proteus_jax.geo.coverage import check_ancillary_inputs
         tx = CRS(32767, ('aea', 'GRS80', 18.0, -100.0, 27.5, 35.0,
                          1500000.0, 6000000.0))
         tile_gt = (500000.0, 30.0, 0.0, 3430000.0, 0.0, -30.0)
@@ -866,8 +866,8 @@ class TestUserDefinedCrs:
             self, tmp_path):
         """Geokeys outside the supported projection families fail with
         the reference's coverage-check error contract, not mid-warp."""
-        from proteus_tpu.geo.coverage import check_ancillary_inputs
-        from proteus_tpu.io import tiff as tiffmod
+        from proteus_jax.geo.coverage import check_ancillary_inputs
+        from proteus_jax.io import tiff as tiffmod
         import synthetic
         # CT 4 = Oblique Mercator Laborde (Hotine CT 3 is supported
         # as of the datum/omerc widening)
@@ -918,7 +918,7 @@ class TestMercator:
         """EPSG GN7-2 Mercator variant A worked example (Makassar /
         NEIEZ, Bessel 1841, k0 0.997): 3S 120E -> E 5009726.58,
         N 569150.82."""
-        from proteus_tpu.geo import crs
+        from proteus_jax.geo import crs
         bes = crs._ensure_ellipsoid(6377397.155, 299.1528128)
         E, N = crs.mercator_forward(-3.0, 120.0, bes, 110.0, 0.997,
                                     3900000.0, 900000.0)
@@ -931,7 +931,7 @@ class TestMercator:
     def test_web_mercator_knowns(self):
         """EPSG GN7-2's 3857 example + the spherical-on-geodetic-lat
         quirk (y(24d22m54.433s) == 2800000 exactly on the sphere)."""
-        from proteus_tpu.geo.crs import (web_mercator_forward,
+        from proteus_jax.geo.crs import (web_mercator_forward,
                                          web_mercator_inverse)
         lat = 24 + 22 / 60 + 54.433 / 3600
         E, N = web_mercator_forward(lat, -(100 + 20 / 60))
@@ -942,7 +942,7 @@ class TestMercator:
 
     @pytest.mark.parametrize('epsg', [3395, 3857])
     def test_roundtrip_and_serialization(self, epsg):
-        from proteus_tpu.geo.crs import CRS
+        from proteus_jax.geo.crs import CRS
         rng = np.random.default_rng(epsg)
         la0 = rng.uniform(-80, 80, 500)
         lo0 = rng.uniform(-179, 179, 500)
@@ -955,8 +955,8 @@ class TestMercator:
         assert CRS.from_proj4(crs.to_proj4()).epsg == epsg
 
     def test_custom_merc_geokey_roundtrip(self, tmp_path):
-        from proteus_tpu.geo import crs
-        from proteus_tpu.io.tiff import TiffReader
+        from proteus_jax.geo import crs
+        from proteus_jax.io.tiff import TiffReader
         bes = crs._ensure_ellipsoid(6377397.155, 299.1528128)
         cm = crs.CRS(32767, ('merc', bes, 110.0, 0.997, 3900000.0,
                              900000.0))
@@ -973,7 +973,7 @@ class TestMercator:
         """A raster delivered in 3857 (e.g. a downloaded basemap-grid
         DEM) warped onto a UTM tile: coverage-accepted, device warp
         bit-identical to host."""
-        from proteus_tpu.geo.coverage import check_ancillary_inputs
+        from proteus_jax.geo.coverage import check_ancillary_inputs
         rng = np.random.default_rng(3857)
         h = w = 250
         tile_gt = (700000.0, 30.0, 0.0, 3395100.0, 0.0, -30.0)
@@ -1016,7 +1016,7 @@ class TestCrsReviewRegressions:
         through the parameter geokeys, not fall back to the geographic
         code (which silently treated metres as degrees)."""
         import struct
-        from proteus_tpu.io import tiff as tiffmod
+        from proteus_jax.io import tiff as tiffmod
         c = CRS(32767, ('lcc', 'GRS80', 44.25, -109.5, 43.0, 45.5,
                         500000.0, 200000.0))
         p = str(tmp_path / 'gdalenc.tif')
@@ -1097,7 +1097,7 @@ class TestCrsReviewRegressions:
         """An LCC 1SP custom CRS with k0 != 1 (French legacy Lambert
         zone style) keeps its scale factor through write_cog ->
         TiffReader.crs() (geokey 3092 on CT 8)."""
-        from proteus_tpu.io.tiff import TiffReader
+        from proteus_jax.io.tiff import TiffReader
         c = CRS(32767, ('lcc', 'GRS80', 46.8, 2.337, 46.8, 46.8,
                         600000.0, 200000.0, 0.99987742))
         assert CRS.from_wkt(c.to_wkt()) == c
@@ -1139,7 +1139,7 @@ class TestLinearUnits:
     9002/9003, WKT UNIT[], proj4 +units=/+to_meter."""
 
     def _spcs27_texas(self):
-        from proteus_tpu.geo import crs
+        from proteus_jax.geo import crs
         clk = crs._ensure_ellipsoid(6378206.4, 294.9786982139006)
         return CRS(32767, ('lcc', clk, 27 + 50 / 60, -99.0,
                            28 + 23 / 60, 30 + 17 / 60, 2000000.0, 0.0),
@@ -1161,7 +1161,7 @@ class TestLinearUnits:
         """A foot CRS is its metre twin with coordinates divided by the
         unit: same projection core, origin maps to (FE, FN) in native
         feet."""
-        from proteus_tpu.geo.crs import _US_FOOT
+        from proteus_jax.geo.crs import _US_FOOT
         ft = CRS(32767, ('lcc', 'GRS80', 39.0 + 1 / 3, -122.0, 40.0,
                          41.0 + 2 / 3, 6561666.666666666,
                          1640416.6666666667), _US_FOOT)
@@ -1186,8 +1186,8 @@ class TestLinearUnits:
         """WKT / proj4 / geokey round-trips preserve the unit and the
         native-unit false easting/northing exactly. proj4 +x_0 is
         emitted in METRES (PROJ's convention) with +units=us-ft."""
-        from proteus_tpu.io.tiff import TiffReader
-        from proteus_tpu.geo.crs import _FOOT, _US_FOOT
+        from proteus_jax.io.tiff import TiffReader
+        from proteus_jax.geo.crs import _FOOT, _US_FOOT
         ft = self._spcs27_texas()
         p4 = ft.to_proj4()
         assert '+units=us-ft' in p4
@@ -1217,8 +1217,8 @@ class TestLinearUnits:
     def test_foot_dem_warp_device_matches_host(self, tmp_path):
         """A DEM delivered in a ftUS State Plane grid: accepted by the
         coverage check, device warp bit-identical to host."""
-        from proteus_tpu.geo.coverage import check_ancillary_inputs
-        from proteus_tpu.geo.crs import _US_FOOT
+        from proteus_jax.geo.coverage import check_ancillary_inputs
+        from proteus_jax.geo.crs import _US_FOOT
         ft = CRS(32767, ('lcc', 'GRS80', 39.0 + 1 / 3, -122.0, 40.0,
                          41.0 + 2 / 3, 6561666.666666666,
                          1640416.6666666667), _US_FOOT)
@@ -1258,13 +1258,13 @@ class TestSinusoidalAndCea:
     SMAP/AMSR snow & soil-moisture rasters)."""
 
     def _modis(self):
-        from proteus_tpu.geo.crs import MODIS_SPHERE_RADIUS
+        from proteus_jax.geo.crs import MODIS_SPHERE_RADIUS
         return CRS(32767, ('sinu', MODIS_SPHERE_RADIUS, 0.0, 0.0, 0.0))
 
     def test_modis_grid_constants(self):
         """On the MODIS sphere the 10-degree tile width is exactly
         R*radians(10) = 1,111,950.5198 m and y = R*lat_rad."""
-        from proteus_tpu.geo.crs import MODIS_SPHERE_RADIUS as R
+        from proteus_jax.geo.crs import MODIS_SPHERE_RADIUS as R
         sinu = self._modis()
         x, y = transform_points('EPSG:4326', sinu, np.array([10.0]),
                                 np.array([0.0]))
@@ -1298,7 +1298,7 @@ class TestSinusoidalAndCea:
     def test_equal_area_jacobian(self, crs_key):
         """Both projections are equal-area: |J| of (lon,lat)->(x,y)
         equals the ellipsoidal/spherical area element everywhere."""
-        from proteus_tpu.geo import crs as crsmod
+        from proteus_jax.geo import crs as crsmod
         crs = {'modis': self._modis(),
                'esri54008': CRS(32767, ('sinu', 'WGS84', 0.0, 0.0,
                                         0.0)),
@@ -1324,7 +1324,7 @@ class TestSinusoidalAndCea:
     def test_serialization_roundtrips(self, tmp_path):
         """WKT / proj4 / geokey round-trips, incl. the sphere radius
         (SPHEROID inverse flattening 0 is legal HERE and only here)."""
-        from proteus_tpu.io.tiff import TiffReader
+        from proteus_jax.io.tiff import TiffReader
         customs = [self._modis(),
                    CRS(32767, ('sinu', 'WGS84', 0.0, 0.0, 0.0)),
                    CRS(32767, ('cea', 'WGS84', 30.0, 10.0, 100.0,
@@ -1352,7 +1352,7 @@ class TestSinusoidalAndCea:
     def test_modis_landcover_warp_device_matches_host(self, tmp_path):
         """A landcover-style raster on the MODIS sinusoidal grid:
         coverage-accepted, device warp bit-identical to host."""
-        from proteus_tpu.geo.coverage import check_ancillary_inputs
+        from proteus_jax.geo.coverage import check_ancillary_inputs
         sinu = self._modis()
         tile_gt = (600000.0, 30.0, 0.0, 3300000.0, 0.0, -30.0)
         cx, cy = transform_points('EPSG:32615', sinu,
@@ -1429,7 +1429,7 @@ class TestAverageResampler:
 
     @pytest.mark.parametrize('wraps', [False, True])
     def test_block_matches_brute_force(self, wraps):
-        from proteus_tpu.geo.warp import _resample_block_average
+        from proteus_jax.geo.warp import _resample_block_average
         rng = np.random.default_rng(21)
         h, w = 40, 60
         fdata = rng.normal(0, 100, (h, w))
@@ -1479,7 +1479,7 @@ class TestAverageResampler:
 
 class TestRasterizer:
     def test_matches_brute_force_point_in_polygon(self):
-        from proteus_tpu.geo.polygon import rasterize_rings
+        from proteus_jax.geo.polygon import rasterize_rings
         rng = np.random.default_rng(8)
         gt = (0.0, 1.0, 0.0, 40.0, 0.0, -1.0)
         H = Wd = 40
@@ -1505,7 +1505,7 @@ class TestRasterizer:
                                           err_msg=f'trial {trial}')
 
     def test_holes_even_odd(self):
-        from proteus_tpu.geo.polygon import rasterize_rings
+        from proteus_jax.geo.polygon import rasterize_rings
         gt = (0.0, 1.0, 0.0, 20.0, 0.0, -1.0)
         outer = np.array([[2, 2], [18, 2], [18, 18], [2, 18]], float)
         hole = np.array([[8, 8], [12, 8], [12, 12], [8, 12]], float)
@@ -1516,7 +1516,7 @@ class TestRasterizer:
 
     def test_large_polygon_fast(self):
         import time
-        from proteus_tpu.geo.polygon import rasterize_rings
+        from proteus_jax.geo.polygon import rasterize_rings
         rng = np.random.default_rng(9)
         # 100k-vertex wiggly circle (GSHHS-scale shoreline)
         n = 100_000

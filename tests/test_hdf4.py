@@ -5,7 +5,7 @@ import pytest
 
 import synthetic
 
-from proteus_tpu.io import hdf4
+from proteus_jax.io import hdf4
 from hdf4_writer import Hdf4Writer, make_struct_metadata
 
 RNG = np.random.default_rng(17)
@@ -131,9 +131,9 @@ def test_hdf4_raster_adapter(tmp_path):
 def test_v1_ingest_end_to_end(tmp_path):
     """Full orchestrator run from an HLS v1 HDF4 product."""
     import oracle
-    from proteus_tpu.core.thresholds import HlsThresholds
-    from proteus_tpu.io.tiff import TiffReader
-    from proteus_tpu.runtime.orchestrator import generate_dswx_layers
+    from proteus_jax.core.thresholds import HlsThresholds
+    from proteus_jax.io.tiff import TiffReader
+    from proteus_jax.runtime.orchestrator import generate_dswx_layers
 
     path, bands = synthetic.make_hls_v1_dataset(str(tmp_path), size=96)
     out = str(tmp_path / 'wtr_v1.tif')

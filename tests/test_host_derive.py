@@ -1,102 +1,20 @@
-"""Minimal-transfer derivation parity: host_derive vs the device chain.
+"""SHAD bit-packing: the device packer and the writer's host unpack.
 
-In campaign minimal-transfer mode the device ships DIAG6/WTR-1/WTR-2/CLOUD
-and the writer derives WTR/BWTR/CONF/DIAG/BROWSE on host; these must be
-bit-identical to the chain's own outputs.
+The campaign keeps the binary SHAD layer on device and copies it to the
+writer pool as 1 bit/px; the round trip must be lossless at every row
+width, including widths that are not a multiple of 8.
 """
 
 import numpy as np
 
-from proteus_tpu.core import constants as C
-from proteus_tpu.models.dswx import host_derive
-from proteus_tpu.models.dswx.chain import DswxChainConfig, dswx_chain
-from proteus_tpu.models.dswx.diagnostics import compute_diagnostic_tests
-
 RNG = np.random.default_rng(77)
 
 
-def _case(mode, with_anc):
-    shape = (128, 128)
-    bands = [np.clip(RNG.integers(-2000, 18000, shape), 1,
-                     None).astype(np.int16) for _ in range(6)]
-    fmask = RNG.integers(0, 256, shape).astype(np.uint8)
-    invalid = RNG.random(shape) < 0.05
-    kw = {}
-    if with_anc:
-        kw = dict(
-            ocean_mask=(RNG.random(shape) < 0.9).astype(np.uint8),
-            shadow_layer=(RNG.random(shape) < 0.8).astype(np.uint8),
-            landcover_mask=RNG.choice(
-                np.array([0, 100, 200, 201, 255], np.uint8), shape))
-    cfg = DswxChainConfig(mask_adjacent_to_cloud_mode=mode)
-    full = dswx_chain(*bands, fmask, invalid, cfg, compute_browse=True,
-                      **kw)
-    full = {k: np.asarray(v) for k, v in full.items()}
-
-    diag6 = np.asarray(compute_diagnostic_tests(*bands,
-                                                cfg.thresholds))
-    diag6 = np.where(invalid, C.DIAGNOSTIC_LAYER_NO_DATA_DECIMAL,
-                     diag6).astype(np.uint8)
-    minimal = {'DIAG6': diag6, 'WTR-1': full['WTR-1'],
-               'WTR-2': full['WTR-2'], 'CLOUD': full['CLOUD']}
-    derived = host_derive.derive_dependent_layers(
-        dict(minimal), compute_browse=True,
-        browse_options=dict(
-            flag_collapse_wtr_classes=cfg.flag_collapse_wtr_classes,
-            exclude_psw_aggressive=cfg.exclude_psw_aggressive_in_browse,
-            set_not_water_to_nodata=cfg.not_water_in_browse == 'nodata',
-            set_cloud_to_nodata=cfg.cloud_in_browse == 'nodata',
-            set_snow_to_nodata=cfg.snow_in_browse == 'nodata',
-            set_ocean_masked_to_nodata=True))
-    return full, derived
-
-
-def test_derivation_matches_chain():
-    for mode in ('mask', 'cover'):
-        for with_anc in (False, True):
-            full, derived = _case(mode, with_anc)
-            for layer in ('WTR', 'BWTR', 'CONF', 'DIAG', 'BROWSE'):
-                np.testing.assert_array_equal(
-                    derived[layer], full[layer],
-                    err_msg=f'{layer} mode={mode} anc={with_anc}')
-
-
-def test_pack_unpack_minimal_roundtrip():
-    """Device 2-byte packing -> host unpack must be lossless over the
-    full value domains (incl. ocean/fill classes and the CLOUD<->WTR-2
-    fill invariant)."""
-    from proteus_tpu.parallel.campaign import _pack_minimal_device
-    shape = (64, 64)
-    diag6 = RNG.integers(0, 33, shape).astype(np.uint8)
-    invalid = diag6 == 32
-    classes = np.array([0, 1, 2, 3, 4, 254], np.uint8)
-    wtr1 = classes[RNG.integers(0, 6, shape)]
-    wtr2 = classes[RNG.integers(0, 6, shape)]
-    wtr1[invalid] = 255
-    wtr2[invalid] = 255
-    cloud = RNG.integers(0, 16, shape).astype(np.uint8)
-    cloud[invalid] = 255
-    out = {'DIAG6': diag6, 'WTR-1': wtr1, 'WTR-2': wtr2,
-           'CLOUD': cloud, 'n_valid': np.int32(5)}
-    import jax.numpy as jnp
-    packed = _pack_minimal_device(
-        {k: (jnp.asarray(v) if isinstance(v, np.ndarray) else v)
-         for k, v in out.items()})
-    assert set(packed) == {'PACKED_A', 'PACKED_B', 'n_valid'}
-    got = host_derive.unpack_minimal(np.asarray(packed['PACKED_A']),
-                                     np.asarray(packed['PACKED_B']))
-    np.testing.assert_array_equal(got['DIAG6'], diag6)
-    np.testing.assert_array_equal(got['WTR-1'], wtr1)
-    np.testing.assert_array_equal(got['WTR-2'], wtr2)
-    np.testing.assert_array_equal(got['CLOUD'], cloud)
-
-
 def test_pack_bits_roundtrip():
-    from proteus_tpu.parallel.campaign import pack_bits_device
+    from proteus_jax.parallel.campaign import pack_bits_device, unpack_bits
     import jax.numpy as jnp
     for w in (96, 97, 103):
         x = (RNG.random((33, w)) < 0.5).astype(np.uint8)
         packed = np.asarray(pack_bits_device(jnp.asarray(x)))
         assert packed.shape == (33, (w + 7) // 8)
-        np.testing.assert_array_equal(
-            host_derive.unpack_bits(packed, w), x)
+        np.testing.assert_array_equal(unpack_bits(packed, w), x)

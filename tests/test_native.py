@@ -3,8 +3,8 @@
 import numpy as np
 import pytest
 
-from proteus_tpu import native
-from proteus_tpu.io import codecs
+from proteus_jax import native
+from proteus_jax.io import codecs
 
 pytestmark = pytest.mark.skipif(not native.available(),
                                 reason='native codec not built')
@@ -57,7 +57,7 @@ def test_deflate_tiles_matches_python(dtype, predictor, samples):
 def test_bspline_decimate_matches_numpy(factor, samples):
     """Native CUBICSPLINE overview decimation must be bit-identical to
     the NumPy implementation (same float64 tap order/renormalization)."""
-    from proteus_tpu.io import cog
+    from proteus_jax.io import cog
     shape = (333, 291, samples)
     arr = (1000 * RNG.normal(size=shape)).astype(np.float32)
     arr[RNG.random(shape) < 0.02] = np.nan
@@ -75,14 +75,14 @@ def test_cog_native_vs_python_roundtrip(tmp_path):
     """COGs written with the native compressor must read back identically
     through the pure-Python decoder (and vice versa)."""
     import os
-    from proteus_tpu.io.cog import write_cog
-    from proteus_tpu.io.tiff import TiffReader
+    from proteus_jax.io.cog import write_cog
+    from proteus_jax.io.tiff import TiffReader
     arr = RNG.integers(0, 30000, (700, 650)).astype(np.int16)
 
     p_native = str(tmp_path / 'n.tif')
     write_cog(p_native, arr, epsg=32615)
 
-    os.environ['PROTEUS_TPU_NO_NATIVE'] = '1'
+    os.environ['PROTEUS_NO_NATIVE'] = '1'
     try:
         native._TRIED = False
         native._LIB = None
@@ -94,7 +94,7 @@ def test_cog_native_vs_python_roundtrip(tmp_path):
         with TiffReader(p_python) as r:
             np.testing.assert_array_equal(r.read(), arr)
     finally:
-        del os.environ['PROTEUS_TPU_NO_NATIVE']
+        del os.environ['PROTEUS_NO_NATIVE']
         native._TRIED = False
         native._LIB = None
     with TiffReader(p_python) as r:

@@ -1,10 +1,8 @@
-"""Native batched block decode + fused unpack/derive parity tests.
+"""Native batched block decode parity tests.
 
 tt_decode_blocks must return byte-identical rasters to the pure-Python
 reader path for every (layout, compression, predictor, window)
-combination, and tt_unpack_derive must match host_derive's NumPy LUT
-path exactly — both natives are pure data movement whose semantics live
-in Python-built tables, so any divergence is a bug.
+combination.
 """
 
 import struct
@@ -13,10 +11,10 @@ import zlib
 import numpy as np
 import pytest
 
-from proteus_tpu import native
-from proteus_tpu.io import codecs
-from proteus_tpu.io.cog import write_cog
-from proteus_tpu.io.tiff import TiffReader
+from proteus_jax import native
+from proteus_jax.io import codecs
+from proteus_jax.io.cog import write_cog
+from proteus_jax.io.tiff import TiffReader
 
 pytestmark = pytest.mark.skipif(
     not (native.available() and native.has_decode_blocks()),
@@ -184,48 +182,3 @@ def test_corrupt_block_raises(tmp_path):
     with TiffReader(path) as r:
         with pytest.raises(ValueError):
             r.read()
-
-
-@pytest.mark.skipif(not native.has_unpack_derive(),
-                    reason='tt_unpack_derive not built')
-@pytest.mark.parametrize('compute_browse', [False, True])
-def test_unpack_derive_native_matches_numpy(compute_browse, monkeypatch):
-    """The fused native unpack+derive must match host_derive's NumPy
-    path bit-for-bit over packings with the production invariants."""
-    from proteus_tpu.models.dswx import host_derive
-    from proteus_tpu.parallel.campaign import _pack_minimal_device
-    import jax.numpy as jnp
-
-    shape = (97, 211)
-    diag6 = RNG.integers(0, 33, shape).astype(np.uint8)
-    invalid = diag6 == 32
-    classes = np.array([0, 1, 2, 3, 4, 254], np.uint8)
-    wtr1 = classes[RNG.integers(0, 6, shape)]
-    wtr2 = classes[RNG.integers(0, 6, shape)]
-    wtr1[invalid] = 255
-    wtr2[invalid] = 255
-    cloud = RNG.integers(0, 16, shape).astype(np.uint8)
-    cloud[invalid] = 255
-    packed = _pack_minimal_device(
-        {'DIAG6': jnp.asarray(diag6), 'WTR-1': jnp.asarray(wtr1),
-         'WTR-2': jnp.asarray(wtr2), 'CLOUD': jnp.asarray(cloud)})
-    pa = np.asarray(packed['PACKED_A'])
-    pb = np.asarray(packed['PACKED_B'])
-    opts = dict(flag_collapse_wtr_classes=True,
-                exclude_psw_aggressive=False,
-                set_not_water_to_nodata=False,
-                set_cloud_to_nodata=True, set_snow_to_nodata=False,
-                set_ocean_masked_to_nodata=True)
-
-    got = host_derive.derive_dependent_layers(
-        {'PACKED_A': pa, 'PACKED_B': pb},
-        compute_browse=compute_browse, browse_options=opts)
-    monkeypatch.setattr(native, 'has_unpack_derive', lambda: False)
-    want = host_derive.derive_dependent_layers(
-        {'PACKED_A': pa.copy(), 'PACKED_B': pb.copy()},
-        compute_browse=compute_browse, browse_options=opts)
-    monkeypatch.undo()
-    assert set(got) == set(want)
-    for k in want:
-        np.testing.assert_array_equal(got[k], want[k], err_msg=k)
-        assert got[k].dtype == want[k].dtype, k

@@ -1,7 +1,7 @@
 """End-to-end: the REFERENCE's orchestrator runs on this repo's engines.
 
 tests/gdal_shim.py provides a functional subset of the osgeo API backed
-by proteus_tpu's own I/O, warp, and CRS engines. Injecting it into the
+by proteus_jax's own I/O, warp, and CRS engines. Injecting it into the
 refbridge-loaded reference module lets the reference's real
 ``generate_dswx_layers`` (dswx_hls.py:4610) execute end-to-end — ingest,
 ancillary warps, science, 10-band product write, browse PNG — on a
@@ -26,10 +26,10 @@ import gdal_shim
 import refbridge
 import synthetic
 
-from proteus_tpu.config.runconfig import parse_runconfig_file
-from proteus_tpu.io.cog import save_as_cog as our_save_as_cog
-from proteus_tpu.runtime.compare import compare_dswx_hls_products
-from proteus_tpu.runtime import orchestrator
+from proteus_jax.config.runconfig import parse_runconfig_file
+from proteus_jax.io.cog import save_as_cog as our_save_as_cog
+from proteus_jax.runtime.compare import compare_dswx_hls_products
+from proteus_jax.runtime import orchestrator
 
 REF = refbridge.load_reference_dswx()
 
@@ -171,7 +171,7 @@ class TestReferenceEndToEnd:
     def test_core_layers_scaled_inputs(self, ref_with_shims, tmp_path):
         """--offset-and-scale-inputs mode: the whole science chain runs
         on float32 scaled reflectance in both implementations (the
-        reference casts at ingest, dswx_hls.py:2298-2302; our TPU path
+        reference casts at ingest, dswx_hls.py:2298-2302; our device path
         uses the division-free exact boundary comparisons)."""
         input_dir = str(tmp_path / 'input')
         files, _bands = synthetic.make_hls_v2_dataset(input_dir, size=360)
@@ -325,7 +325,7 @@ class TestReferenceEndToEnd:
             list(files), hls_thresholds=our_t, dem_file=dem_file,
             scratch_dir=our_scratch, **outs(our_dir), **common)
         assert ret
-        from proteus_tpu.io.tiff import TiffReader
+        from proteus_jax.io.tiff import TiffReader
         with TiffReader(os.path.join(our_dir, 'shad.tif')) as r:
             shad = r.read()
         assert set(np.unique(shad)) <= {0, 1}
@@ -401,7 +401,7 @@ class TestReferenceEndToEnd:
         assert ret
 
         # the mask must actually bite: ocean class present in WTR
-        from proteus_tpu.io.tiff import TiffReader
+        from proteus_jax.io.tiff import TiffReader
         with TiffReader(os.path.join(our_dir, 'wtr.tif')) as r:
             assert (r.read() == 254).any(), 'no ocean-masked pixels'
 
@@ -444,8 +444,8 @@ class TestReferenceEndToEnd:
         _compare_trees(ref_dir, our_dir)
 
         # a DEM covering only half the tile: both sides must raise
-        from proteus_tpu.io.tiff import TiffReader
-        from proteus_tpu.io.cog import write_cog
+        from proteus_jax.io.tiff import TiffReader
+        from proteus_jax.io.cog import write_cog
         with TiffReader(anc['dem_file']) as r:
             dem = r.read()
             gt = r.geotransform()
@@ -475,7 +475,7 @@ class TestReferenceEndToEnd:
         runconfig is rejected by both."""
         import types
         import yaml as pyyaml
-        from proteus_tpu.config import validator as v
+        from proteus_jax.config import validator as v
 
         def _make_schema(path, parser=None):
             return v.load_schema(path)
@@ -512,7 +512,7 @@ class TestReferenceEndToEnd:
                 thresholds={'wigt': 0.2, 'pswt_1_nir': 1400})
             ref_rc = ref_with_shims.parse_runconfig_file(rc_path)
             our_rc = parse_runconfig_file(user_runconfig_file=rc_path)
-            from proteus_tpu.config.runconfig import RunConfigConstants
+            from proteus_jax.config.runconfig import RunConfigConstants
             for field in RunConfigConstants.__dataclass_fields__:
                 if field == 'hls_thresholds':
                     continue
@@ -541,19 +541,19 @@ class TestReferenceEndToEnd:
             REF.yamale, REF.ruamel_yaml = saved
 
     @pytest.mark.skipif(
-        not os.environ.get('PROTEUS_TPU_FULL_E2E'),
-        reason='full-size run (minutes); set PROTEUS_TPU_FULL_E2E=1')
+        not os.environ.get('PROTEUS_FULL_E2E'),
+        reason='full-size run (minutes); set PROTEUS_FULL_E2E=1')
     def test_full_size_core_layers(self, ref_with_shims, tmp_path):
         """Production-size (3660^2) reference-vs-ours comparison: full
         COG pyramid (overviews 4/16/64/128), partial edge tiles, big
         browse resize — everything the 720-px run cannot exercise.
-        PROTEUS_TPU_FULL_E2E=2 adds the DEM/landcover ancillaries (LAND,
+        PROTEUS_FULL_E2E=2 adds the DEM/landcover ancillaries (LAND,
         SHAD, float32 DEM layer over the full 10980^2 WorldCover warp).
-        PROTEUS_TPU_FULL_E2E=3 additionally runs the whole chain in
+        PROTEUS_FULL_E2E=3 additionally runs the whole chain in
         scaled-float32 mode (flag_offset_and_scale_inputs, the
         reference's --offset-and-scale-inputs, dswx_hls.py:2298-2302) —
         the full-size gate for the exact-boundary float path."""
-        level = os.environ.get('PROTEUS_TPU_FULL_E2E')
+        level = os.environ.get('PROTEUS_FULL_E2E')
         with_anc = level in ('2', '3')
         scaled = level == '3'
         input_dir = str(tmp_path / 'input')
@@ -620,8 +620,8 @@ class TestReferenceEndToEnd:
         assert ret
         assert ref_with_shims.compare_dswx_hls_products(wtr, wtr)
 
-        from proteus_tpu.io.tiff import TiffReader
-        from proteus_tpu.io.cog import write_cog
+        from proteus_jax.io.tiff import TiffReader
+        from proteus_jax.io.cog import write_cog
         with TiffReader(wtr) as r:
             arr = r.read()
             gt = r.geotransform()
@@ -689,7 +689,7 @@ class TestReferenceEndToEnd:
         import importlib
         import types
         core = importlib.import_module('proteus.core')
-        from proteus_tpu.geo.mgrs import (
+        from proteus_jax.geo.mgrs import (
             get_hls_geographic_boundaries_from_mgrs_tile as ours,
             mgrs_to_utm)
 
@@ -728,7 +728,7 @@ class TestReferenceEndToEnd:
         classification (WTR)'. Our product writer deliberately fixes
         both (COMPONENTS.md); shipped OPERA products are per-layer files,
         which match bit-for-bit (the tests above)."""
-        monkeypatch.setenv('PROTEUS_TPU_HOST_WARP', '1')
+        monkeypatch.setenv('PROTEUS_HOST_WARP', '1')
         input_dir = str(tmp_path / 'input')
         files, _bands = synthetic.make_hls_v2_dataset(input_dir, size=360)
         for d in ('dem', 'lc', 'wc', 'out', 'scratch'):
@@ -745,7 +745,7 @@ class TestReferenceEndToEnd:
             list(files), output_file=out, hls_thresholds=ref_t,
             scratch_dir=str(tmp_path / 'scratch'), **anc, **common)
         assert ret
-        from proteus_tpu.io.tiff import TiffReader
+        from proteus_jax.io.tiff import TiffReader
         with TiffReader(out) as r:
             stack = r.read()
             descs = r.band_descriptions()

@@ -1,6 +1,6 @@
 """Bit-exactness vs the reference's OWN executing code (not our oracle).
 
-Round 1 validated the TPU chain against tests/oracle.py — this repo's
+Round 1 validated the device chain against tests/oracle.py — this repo's
 re-implementation of the reference semantics — leaving a loophole: a shared
 misreading of dswx_hls.py would pass every test. These tests close it by
 importing /root/reference/src/proteus/dswx_hls.py through tests/refbridge.py
@@ -33,21 +33,21 @@ import pytest
 import oracle
 import refbridge
 
-from proteus_tpu.core import constants as C
-from proteus_tpu.core.thresholds import HlsThresholds
-from proteus_tpu.models.dswx.chain import DswxChainConfig, dswx_chain
-from proteus_tpu.models.dswx.diagnostics import (compute_diagnostic_tests,
+from proteus_jax.core import constants as C
+from proteus_jax.core.thresholds import HlsThresholds
+from proteus_jax.models.dswx.chain import DswxChainConfig, dswx_chain
+from proteus_jax.models.dswx.diagnostics import (compute_diagnostic_tests,
                                                  get_binary_representation)
-from proteus_tpu.models.dswx.interpretation import (generate_interpreted_layer,
+from proteus_jax.models.dswx.interpretation import (generate_interpreted_layer,
                                                     get_binary_water_layer,
                                                     get_confidence_layer,
                                                     collapse_wtr_classes)
-from proteus_tpu.models.dswx import masking
-from proteus_tpu.models.dswx.browse import compute_browse_array
-from proteus_tpu.models.dswx.landcover import create_landcover_mask_arrays
-from proteus_tpu.models.dswx.shadow import (compute_opera_shadow_layer_exact,
+from proteus_jax.models.dswx import masking
+from proteus_jax.models.dswx.browse import compute_browse_array
+from proteus_jax.models.dswx.landcover import create_landcover_mask_arrays
+from proteus_jax.models.dswx.shadow import (compute_opera_shadow_layer_exact,
                                             _decision_boundaries)
-from proteus_tpu.ops.otsu import otsu_binarize
+from proteus_jax.ops.otsu import otsu_binarize
 
 REF = refbridge.load_reference_dswx()
 
@@ -348,7 +348,7 @@ class TestPerStageParity:
         executing on them -> `hillshade > threshold`. Our byte-LUT cut
         must reproduce the float64 comparison bit-for-bit."""
         import jax.numpy as jnp
-        from proteus_tpu.models.dswx.shadow import (
+        from proteus_jax.models.dswx.shadow import (
             compute_otsu_shadow_layer_exact, _host_hillshade_gdal)
         rng = np.random.default_rng(11)
         for az, elev in [(135.0, 45.0), (277.3, 18.0), (45.0, 70.0)]:
@@ -398,7 +398,7 @@ class TestCtableAndMetadataParity:
     @pytest.mark.parametrize('collapse,layer', [
         (True, 'WTR'), (False, 'WTR'), (True, 'WTR-1'), (False, 'WTR-2')])
     def test_interpreted_ctable(self, collapse, layer):
-        from proteus_tpu.runtime import ctables
+        from proteus_jax.runtime import ctables
         ref_ct = REF._get_interpreted_dswx_ctable(collapse, layer)
         self._compare(ref_ct, ctables.get_interpreted_dswx_ctable(
             collapse, layer))
@@ -410,12 +410,12 @@ class TestCtableAndMetadataParity:
         dict(not_water_color='nodata', snow_color='nodata'),
     ])
     def test_browse_ctable(self, kw):
-        from proteus_tpu.runtime import ctables
+        from proteus_jax.runtime import ctables
         ref_ct = REF._get_browse_ctable(**kw)
         self._compare(ref_ct, ctables.get_browse_ctable(**kw))
 
     def test_fixed_ctables(self):
-        from proteus_tpu.runtime import ctables
+        from proteus_jax.runtime import ctables
         self._compare(REF._get_cloud_layer_ctable(),
                       ctables.get_cloud_layer_ctable())
         self._compare(REF._get_landcover_mask_ctable(),
@@ -428,7 +428,7 @@ class TestCtableAndMetadataParity:
                       ctables.get_confidence_layer_ctable())
 
     def test_transparency_rgb(self):
-        from proteus_tpu.runtime import ctables
+        from proteus_jax.runtime import ctables
         for alpha in (0.0, 0.25, 0.5, 0.9, 1.0):
             want = REF.get_transparency_rgb_vals((10, 200, 30),
                                                  (255, 255, 255), alpha)
@@ -437,7 +437,7 @@ class TestCtableAndMetadataParity:
             assert tuple(want) == tuple(got), alpha
 
     def test_metadata_dict_and_datasets(self):
-        from proteus_tpu.runtime import metadata as md_util
+        from proteus_jax.runtime import metadata as md_util
         want = REF._get_dswx_metadata_dict('OPERA_L3_DSWx', '1.0')
         got = md_util.get_dswx_metadata_dict('OPERA_L3_DSWx', '1.0')
         for k in want:
@@ -473,7 +473,7 @@ class TestCtableAndMetadataParity:
         (False, True, 'otsu'),
         (True, False, 'sun_local_inc_angle')])
     def test_metadata_processing_parameters(self, ocean, aerosol, algo):
-        from proteus_tpu.runtime import metadata as md_util
+        from proteus_jax.runtime import metadata as md_util
         kw = dict(
             apply_ocean_masking=ocean,
             apply_aerosol_class_remapping=aerosol,
@@ -499,7 +499,7 @@ class TestCtableAndMetadataParity:
     def test_science_constant_dicts(self):
         assert dict(REF.interpreted_dswx_band_dict) == oracle.INTERP
         assert dict(REF.collapse_wtr_classes_dict) == oracle.COLLAPSE
-        from proteus_tpu.core import constants as C2
+        from proteus_jax.core import constants as C2
         assert dict(REF.band_description_dict) == C2.BAND_DESCRIPTION_DICT
 
 

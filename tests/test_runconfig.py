@@ -8,9 +8,9 @@ import pytest
 
 import synthetic
 
-from proteus_tpu.config.runconfig import (deep_update, load_runconfig,
+from proteus_jax.config.runconfig import (deep_update, load_runconfig,
                                           parse_runconfig_file)
-from proteus_tpu.io import hls as hls_io
+from proteus_jax.io import hls as hls_io
 
 
 def _args():
@@ -21,7 +21,7 @@ def _args():
                  'shoreline_shapefile_description', 'scratch_dir',
                  'product_id', 'product_version', 'output_browse_image'):
         setattr(ns, name, None)
-    from proteus_tpu.core import constants as C
+    from proteus_jax.core import constants as C
     for arg in C.LAYER_NAMES_TO_ARGS_DICT.values():
         setattr(ns, arg, None)
     return ns
@@ -95,7 +95,7 @@ class TestIngestErrors:
         assert out is None
 
     def test_unsupported_platform_returns_false(self, tmp_path):
-        from proteus_tpu.io.cog import write_cog
+        from proteus_jax.io.cog import write_cog
         md = dict(synthetic.HLS_METADATA)
         md['SPACECRAFT_NAME'] = 'Terra'
         files = []

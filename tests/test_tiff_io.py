@@ -1,12 +1,14 @@
 """GeoTIFF/COG codec round-trip tests."""
 
+import glob
+
 import numpy as np
 import pytest
 
-from proteus_tpu.io import codecs
-from proteus_tpu.io.cog import write_cog
-from proteus_tpu.io.tiff import TiffReader
-from proteus_tpu.io.validate_cog import validate_cog
+from proteus_jax.io import codecs
+from proteus_jax.io.cog import write_cog
+from proteus_jax.io.tiff import TiffReader
+from proteus_jax.io.validate_cog import validate_cog
 
 RNG = np.random.default_rng(3)
 
@@ -132,7 +134,7 @@ class TestCogRoundtrip:
             assert ov.shape == (128, 128)
 
     def test_cubicspline_float_overviews(self, tmp_path):
-        from proteus_tpu.io.cog import _cubicspline_decimate
+        from proteus_jax.io.cog import _cubicspline_decimate
         # constants are preserved exactly by the normalized B-spline kernel
         const = np.full((130, 97), 3.5, np.float32)
         for f in (4, 16, 64):
@@ -158,7 +160,7 @@ class TestCogRoundtrip:
         """GDAL structural ghost area + block leader/trailer bytes
         (reference validator extern/validate_cloud_optimized_geotiff.py:
         82-95,196-214)."""
-        from proteus_tpu.io.validate_cog import validate_cog
+        from proteus_jax.io.validate_cog import validate_cog
         arr = RNG.integers(0, 255, (700, 600)).astype(np.uint8)
         path = str(tmp_path / 'g.tif')
         write_cog(path, arr, epsg=32601)
@@ -206,7 +208,7 @@ class TestCogRoundtrip:
 def test_compare_handles_nan_rgb(tmp_path):
     """float32 RGB products with NaN fill compare equal (equal_nan), and
     differing pixels are detected."""
-    from proteus_tpu.runtime.compare import compare_dswx_hls_products
+    from proteus_jax.runtime.compare import compare_dswx_hls_products
     rgb = RNG.normal(0.1, 0.02, (64, 64, 3)).astype(np.float32)
     rgb[:8, :8, :] = np.nan
     a = str(tmp_path / 'a.tif')
@@ -225,7 +227,7 @@ def test_sparse_tiles_read_as_zeros(tmp_path):
     """Blocks with zero offset/count (GDAL sparse files) decode as
     zeros."""
     import struct
-    from proteus_tpu.io.tiff import (TAG_TILE_OFFSETS,
+    from proteus_jax.io.tiff import (TAG_TILE_OFFSETS,
                                      TAG_TILE_BYTE_COUNTS)
     arr = np.zeros((1024, 1024), np.uint8)
     arr[:512, :512] = 7
@@ -295,7 +297,7 @@ class TestPayloadCache:
 
     def test_hit_reuses_blobs_and_rebuilds_tags(self, tmp_path,
                                                 monkeypatch):
-        from proteus_tpu.io import cog
+        from proteus_jax.io import cog
         cog.PAYLOAD_CACHE.clear()
         rng = np.random.default_rng(7)
         arr = rng.normal(size=(700, 650)).astype(np.float32)
@@ -319,7 +321,7 @@ class TestPayloadCache:
         cog.PAYLOAD_CACHE.clear()
 
     def test_key_separates_different_payloads(self, tmp_path):
-        from proteus_tpu.io import cog
+        from proteus_jax.io import cog
         cog.PAYLOAD_CACHE.clear()
         rng = np.random.default_rng(8)
         a1 = rng.normal(size=(260, 260)).astype(np.float32)
@@ -334,9 +336,9 @@ class TestPayloadCache:
         cog.PAYLOAD_CACHE.clear()
 
     def test_cap_zero_disables(self, tmp_path, monkeypatch):
-        from proteus_tpu.io import cog
+        from proteus_jax.io import cog
         cog.PAYLOAD_CACHE.clear()
-        monkeypatch.setenv('PROTEUS_TPU_COG_PAYLOAD_CACHE', '0')
+        monkeypatch.setenv('PROTEUS_COG_PAYLOAD_CACHE', '0')
         arr = np.arange(64 * 64, dtype=np.float32).reshape(64, 64)
         builds = []
         orig = cog._IfdPlan.build_tiles
@@ -353,8 +355,8 @@ class TestPayloadCache:
         """_write_tile forwards dem_payload_key: two tiles on the same
         grid encode the DEM payload once (hit observed via the cache's
         internal store)."""
-        from proteus_tpu.io import cog
-        from proteus_tpu.parallel.campaign import _write_tile, TileJob
+        from proteus_jax.io import cog
+        from proteus_jax.parallel.campaign import _write_tile, TileJob
         cog.PAYLOAD_CACHE.clear()
         dem = np.linspace(0, 800, 96 * 96,
                           dtype=np.float32).reshape(96, 96)

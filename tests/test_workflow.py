@@ -10,12 +10,12 @@ import pytest
 import oracle
 import synthetic
 
-from proteus_tpu.cli.dswx_hls import main as dswx_hls_main
-from proteus_tpu.cli.dswx_compare import main as dswx_compare_main
-from proteus_tpu.core.thresholds import HlsThresholds
-from proteus_tpu.io.tiff import TiffReader
-from proteus_tpu.io.validate_cog import validate_cog
-from proteus_tpu.runtime.compare import compare_dswx_hls_products
+from proteus_jax.cli.dswx_hls import main as dswx_hls_main
+from proteus_jax.cli.dswx_compare import main as dswx_compare_main
+from proteus_jax.core.thresholds import HlsThresholds
+from proteus_jax.io.tiff import TiffReader
+from proteus_jax.io.validate_cog import validate_cog
+from proteus_jax.runtime.compare import compare_dswx_hls_products
 
 T = HlsThresholds()
 TDICT = {k: getattr(T, k) for k in T.__dataclass_fields__}
@@ -210,7 +210,7 @@ def test_l30_landsat_ingest(tmp_path):
     files, bands = synthetic.make_hls_v2_dataset(
         str(tmp_path / 'in'), size=96, product='L30')
     out = str(tmp_path / 'wtr_l30.tif')
-    from proteus_tpu.runtime.orchestrator import generate_dswx_layers
+    from proteus_jax.runtime.orchestrator import generate_dswx_layers
     ok = generate_dswx_layers(files, output_interpreted_band=out,
                               check_ancillary_inputs_coverage=False,
                               apply_ocean_masking=False)

@@ -5,9 +5,9 @@ downloads (reference tests/test_dswx_hls_workflow.py:17-118).
 Two ways to enable (disabled by default — this environment has neither
 network access nor a local copy):
 
-- PROTEUS_TPU_ZENODO_DATASET=/path/to/s30_louisiana_mississippi
+- PROTEUS_ZENODO_DATASET=/path/to/s30_louisiana_mississippi
   points at an extracted copy of the tarball (or at the .tar.gz itself);
-- PROTEUS_TPU_ZENODO_TEST=1 downloads it from Zenodo first.
+- PROTEUS_ZENODO_TEST=1 downloads it from Zenodo first.
 
 Either way the full CLI runs on the real S30 Louisiana/Mississippi scene
 (debug-crop mode, like the reference test) and every file in ref_dir is
@@ -19,13 +19,13 @@ import tarfile
 
 import pytest
 
-_LOCAL = os.environ.get('PROTEUS_TPU_ZENODO_DATASET')
-_LIVE = os.environ.get('PROTEUS_TPU_ZENODO_TEST')
+_LOCAL = os.environ.get('PROTEUS_ZENODO_DATASET')
+_LIVE = os.environ.get('PROTEUS_ZENODO_TEST')
 
 pytestmark = pytest.mark.skipif(
     not (_LOCAL or _LIVE),
-    reason='golden-products test disabled (set PROTEUS_TPU_ZENODO_DATASET='
-           '<path> for a local copy, or PROTEUS_TPU_ZENODO_TEST=1 to '
+    reason='golden-products test disabled (set PROTEUS_ZENODO_DATASET='
+           '<path> for a local copy, or PROTEUS_ZENODO_TEST=1 to '
            'download from Zenodo)')
 
 ZENODO_URL = ('https://zenodo.org/record/7714211/files/'
@@ -51,8 +51,8 @@ def _dataset_dir(tmp_path):
 def test_workflow_against_reference_products(tmp_path):
     dataset_dir = _dataset_dir(tmp_path)
 
-    from proteus_tpu.cli.dswx_hls import main as dswx_hls_main
-    from proteus_tpu.runtime.compare import compare_dswx_hls_products
+    from proteus_jax.cli.dswx_hls import main as dswx_hls_main
+    from proteus_jax.runtime.compare import compare_dswx_hls_products
 
     runconfig = os.path.join(dataset_dir, 'dswx_hls.yaml')
     dswx_hls_main([runconfig, '--debug'])

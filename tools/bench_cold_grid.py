@@ -1,8 +1,7 @@
-"""Cold- vs warm-ancillary-grid campaign benchmark (VERDICT r3 item 2).
+"""Cold- vs warm-ancillary-grid campaign benchmark.
 
-The round-3 7.2 tiles/min E2E headline is warm-ancillary-cache only:
-every tile of that campaign shares one MGRS grid, so the per-grid DEM
-warp, terrain products, landcover warps, and ocean rasterization are
+A campaign whose tiles all share one MGRS grid runs warm: the per-grid
+DEM warp, terrain products, landcover warps, and ocean rasterization are
 paid once and then served from `_AncillaryCache`. A continental
 campaign visits thousands of distinct grids — each tile pays the full
 ancillary bill. This tool records BOTH regimes on hardware:
@@ -15,9 +14,9 @@ ancillary bill. This tool records BOTH regimes on hardware:
 
 Both runs drive `CampaignRunner` in-process (per-tile ancillary files
 need `TileJob`'s per-job fields, which the CLI's shared --dem surface
-does not expose) with PROTEUS_TPU_STAGE_TIMES=1, identical runner
-settings, and a cleared cache, then write COLD_GRID_BENCH.json at the
-repo root with tiles/min + the per-stage core-seconds table for each.
+does not expose) with PROTEUS_STAGE_TIMES=1, identical runner
+settings, and a cleared cache, then write profiles/cold_grid_bench.json
+with tiles/min + the per-stage core-seconds table for each.
 
 Reference match: the per-tile `_warp` calls at
 /root/reference/src/proteus/dswx_hls.py:5145,5196 — the reference pays
@@ -100,9 +99,9 @@ def build_warm(root, n, size):
 
 
 def run_campaign(tiles, out_root, label):
-    from proteus_tpu.core.thresholds import HlsThresholds
-    from proteus_tpu.models.dswx.chain import DswxChainConfig
-    from proteus_tpu.parallel import campaign as cmod
+    from proteus_jax.core.thresholds import HlsThresholds
+    from proteus_jax.models.dswx.chain import DswxChainConfig
+    from proteus_jax.parallel import campaign as cmod
 
     cmod.ANCILLARY_CACHE.clear()
     cmod.STAGE_TIMES.reset()
@@ -138,14 +137,15 @@ def main():
     ap = argparse.ArgumentParser()
     ap.add_argument('--tiles', type=int, default=16)
     ap.add_argument('--size', type=int, default=3660)
-    ap.add_argument('--root', default='/tmp/proteus_cold_grid')
+    ap.add_argument('--root', default=os.path.join(REPO, 'profiles',
+                                                   'cold_grid'))
     ap.add_argument('--out', default=os.path.join(
-        REPO, 'COLD_GRID_BENCH.json'))
+        REPO, 'profiles', 'cold_grid_bench.json'))
     ap.add_argument('--keep-data', action='store_true')
     ap.add_argument('--skip-warm', action='store_true',
                     help='cold run only (reuse a recorded warm row)')
     args = ap.parse_args()
-    os.environ['PROTEUS_TPU_STAGE_TIMES'] = '1'
+    os.environ['PROTEUS_STAGE_TIMES'] = '1'
 
     import jax
     report = {'generated': time.strftime('%Y-%m-%dT%H:%M:%SZ',
@@ -171,6 +171,7 @@ def main():
             report['warm']['tiles_per_min']
             / report['cold']['tiles_per_min'], 2)
 
+    os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)
     with open(args.out, 'w') as fh:
         json.dump(report, fh, indent=1)
     print(json.dumps({'artifact': os.path.basename(args.out)}))

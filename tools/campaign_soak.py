@@ -1,4 +1,4 @@
-"""Campaign soak + fault injection on real hardware (VERDICT r2 item 4).
+"""Campaign soak + fault injection on the device.
 
 One recorded run proving the campaign's failure-handling machinery at
 scale on the actual device:
@@ -6,7 +6,7 @@ scale on the actual device:
   1. build 32 distinct synthetic HLS granules sharing one MGRS grid and
      one ancillary set (the production time-series pattern);
   2. phase A: launch `dswx_campaign` as a subprocess with a TRANSIENT
-     injected reader fault on one tile (PROTEUS_TPU_FAULT_INJECT) and
+     injected reader fault on one tile (PROTEUS_FAULT_INJECT) and
      SIGKILL the process mid-campaign once the manifest shows progress;
   3. phase B: relaunch the identical command — the manifest resume must
      skip every completed tile and finish exactly the remainder;
@@ -14,7 +14,7 @@ scale on the actual device:
      succeeded, phase-A outputs untouched by phase B (mtime check), and
      every product is a structurally valid COG.
 
-Writes SOAK_CAMPAIGN.json at the repo root — commit it as the artifact.
+Writes its report to profiles/soak_campaign*.json (``--out`` moves it).
 
     python tools/campaign_soak.py [--tiles 32] [--size 3660]
                                   [--kill-after-done 6]
@@ -75,14 +75,15 @@ def main():
     ap.add_argument('--size', type=int, default=3660)
     ap.add_argument('--kill-after-done', type=int, default=6,
                     help='SIGKILL phase A once this many tiles are done')
-    ap.add_argument('--root', default='/tmp/proteus_soak')
+    ap.add_argument('--root', default=os.path.join(REPO, 'profiles',
+                                                   'soak'))
     ap.add_argument('--fault-tile', default='tile_03')
     ap.add_argument('--out', default=None,
-                    help='default: SOAK_CAMPAIGN.json at the repo root'
-                         ' (SOAK_CAMPAIGN_SCALED.json with --scaled)')
+                    help='default: profiles/soak_campaign[_scaled|_otsu]'
+                         '.json')
     ap.add_argument('--scaled', action='store_true', default=False,
                     help='soak the scaled-reflectance campaign (float32'
-                         ' chain; on TPU the device-side cast path)')
+                         ' chain with the device-side cast)')
     ap.add_argument('--otsu', action='store_true', default=False,
                     help='Run the campaign with '
                          '--shadow-masking-algorithm otsu (soaks the '
@@ -92,9 +93,9 @@ def main():
     args = ap.parse_args()
     if args.out is None:
         args.out = os.path.join(
-            REPO, 'SOAK_CAMPAIGN_OTSU.json' if args.otsu
-            else 'SOAK_CAMPAIGN_SCALED.json' if args.scaled
-            else 'SOAK_CAMPAIGN.json')
+            REPO, 'profiles', 'soak_campaign_otsu.json' if args.otsu
+            else 'soak_campaign_scaled.json' if args.scaled
+            else 'soak_campaign.json')
 
     report = {'generated': time.strftime('%Y-%m-%dT%H:%M:%SZ',
                                          time.gmtime()),
@@ -115,7 +116,7 @@ def main():
     stats_json = os.path.join(out_dir, 'campaign_stats.json')
     if os.path.isfile(stats_json):
         os.remove(stats_json)
-    cmd = [sys.executable, '-m', 'proteus_tpu.cli.dswx_campaign',
+    cmd = [sys.executable, '-m', 'proteus_jax.cli.dswx_campaign',
            *dirs, '-o', out_dir, '--dem', dem, '--landcover', lc,
            '--worldcover', wc, '--shoreline', shore, '--browse',
            '--manifest', manifest, '--stats-json', stats_json]
@@ -124,11 +125,11 @@ def main():
     if args.otsu:
         cmd += ['--shadow-masking-algorithm', 'otsu']
     env = dict(os.environ)
-    env['PROTEUS_TPU_FAULT_INJECT'] = f'{args.fault_tile}:1'
+    env['PROTEUS_FAULT_INJECT'] = f'{args.fault_tile}:1'
     # per-stage core-seconds attribution lands in the phase-B stats
     # (phase A is SIGKILLed, so only phase B's table survives) — the
     # root-cause evidence VERDICT r3 weak item 1 demanded
-    env['PROTEUS_TPU_STAGE_TIMES'] = '1'
+    env['PROTEUS_STAGE_TIMES'] = '1'
 
     # ---- phase A: run + injected fault + SIGKILL mid-campaign ----
     t0 = time.time()
@@ -178,7 +179,7 @@ def main():
 
     # ---- phase B: resume (no fault this time) ----
     t0 = time.time()
-    env.pop('PROTEUS_TPU_FAULT_INJECT')
+    env.pop('PROTEUS_FAULT_INJECT')
     log_b = os.path.join(args.root, 'phase_b.log')
     with open(log_b, 'wb') as log_fh:
         rc = subprocess.run(cmd, env=env, cwd=REPO,
@@ -210,7 +211,7 @@ def main():
     checks['fault_tile_done'] = \
         state.get(args.fault_tile, {}).get('status') == 'done'
     # every product layer is a structurally valid COG
-    from proteus_tpu.io.validate_cog import validate_cog
+    from proteus_jax.io.validate_cog import validate_cog
     n_valid = n_bad = 0
     for f in glob.glob(os.path.join(out_dir, 'tile_*', '*.tif')):
         if validate_cog(f, full_check=False):
@@ -229,6 +230,7 @@ def main():
         checks['all_done'] and checks['phase_a_outputs_untouched']
         and checks['fault_tile_done'] and checks['cogs_valid']) \
         else 'FAIL'
+    os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)
     with open(args.out, 'w') as fh:
         json.dump(report, fh, indent=1)
     print(json.dumps({'soak': report['status'], 'artifact': args.out}))

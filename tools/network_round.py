@@ -71,8 +71,8 @@ def _sha256(path, limit=None):
 def run_zenodo_golden(dataset_dir, result):
     """Run the CLI on the scene and compare vs ref_dir (reference
     workflow-test protocol, test_dswx_hls_workflow.py:57-118)."""
-    from proteus_tpu.cli.dswx_hls import main as dswx_hls_main
-    from proteus_tpu.runtime.compare import compare_dswx_hls_products
+    from proteus_jax.cli.dswx_hls import main as dswx_hls_main
+    from proteus_jax.runtime.compare import compare_dswx_hls_products
 
     runconfig = os.path.join(dataset_dir, 'dswx_hls.yaml')
     t0 = time.time()
@@ -101,8 +101,8 @@ def run_zenodo_golden(dataset_dir, result):
 
 def run_hdf4_read(hdf_path, result):
     """Read a real HLS v1 HDF4 granule through the production reader."""
-    from proteus_tpu.io import hdf4
-    from proteus_tpu.io.hls import load_hls_product_v1
+    from proteus_jax.io import hdf4
+    from proteus_jax.io.hls import load_hls_product_v1
 
     with hdf4.Hdf4File(hdf_path) as f:
         result['datasets'] = sorted(f.datasets())[:40]
@@ -158,7 +158,7 @@ def _make_standin_scene(root, size=192):
         scratch, dem_file=dem, landcover_file=landcover,
         worldcover_file=worldcover)
     # build ref_dir with one pipeline invocation
-    from proteus_tpu.cli.dswx_hls import main as dswx_hls_main
+    from proteus_jax.cli.dswx_hls import main as dswx_hls_main
     dswx_hls_main([yaml_path, '--debug'])
     ref_dir = os.path.join(scene, 'ref_dir')
     shutil.rmtree(ref_dir, ignore_errors=True)
